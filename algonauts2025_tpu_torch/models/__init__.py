@@ -1,0 +1,16 @@
+"""Models of the port: the FmriEncoder trunk and its pieces."""
+
+from .common import SubjectLayers
+from .convert import flax_params_to_torch
+from .fmri_encoder import FmriEncoder, FmriEncoderConfig
+from .transformer import ScaleNorm, TransformerEncoder, TransformerEncoderConfig
+
+__all__ = [
+    "FmriEncoder",
+    "FmriEncoderConfig",
+    "ScaleNorm",
+    "SubjectLayers",
+    "TransformerEncoder",
+    "TransformerEncoderConfig",
+    "flax_params_to_torch",
+]

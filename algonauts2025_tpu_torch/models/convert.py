@@ -1,0 +1,99 @@
+"""Weight transfer from a flax param tree to the port's ``state_dict``.
+
+The JAX trunk scans one block over depth, so its block params are stacked
+``(depth, ...)`` leaves under ``blocks/block/``; they are unstacked into
+``blocks.<i>.``.  Flax Dense kernels are ``(in, out)`` and become torch
+Linear ``(out, in)`` weights.  Every leaf must map to a known name: an
+unmatched leaf raises, and loading the result with ``strict=True`` catches
+parameters the tree lacks.
+"""
+
+from __future__ import annotations
+
+import typing as tp
+
+import numpy as np
+import torch
+
+__all__ = ["flax_params_to_torch"]
+
+#: flax module names whose torch counterpart has the same name
+_SAME = {
+    "encoder", "blocks", "attn", "ff", "qkv", "out", "attn_norm", "ff_norm",
+    "final_norm", "predictor", "subject_embed",
+}
+_RENAMED = {"Dense_0": "fc1", "Dense_1": "fc2"}
+#: leaf name -> (torch name, transpose the last two axes)
+_LEAVES = {
+    "kernel": ("weight", True),
+    "bias": ("bias", False),
+    "g": ("g", False),
+    "scale": ("weight", False),  # LayerNorm gain
+    "embedding": ("weight", False),
+    "weights": ("weights", False),
+    "time_pos_embed": ("time_pos_embed", False),
+    "res_scale_attn": ("res_scale_attn", False),
+    "res_scale_ff": ("res_scale_ff", False),
+}
+
+
+def _flatten(tree: tp.Mapping[str, tp.Any], prefix: tuple[str, ...] = ()):
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, tp.Mapping):
+            yield from _flatten(value, path)
+        else:
+            yield path, np.asarray(value)
+
+
+def _module_name(part: str) -> list[str]:
+    if part.startswith("proj_"):
+        return ["projectors", part[len("proj_"):]]
+    if part.startswith("contrastive_"):
+        return ["contrastive_heads", part[len("contrastive_"):]]
+    if part in _RENAMED:
+        return [_RENAMED[part]]
+    if part in _SAME or part.isdigit():
+        return [part]
+    raise KeyError(part)
+
+
+def _convert_leaf(path: tuple[str, ...], value: np.ndarray) -> tuple[str, np.ndarray]:
+    *modules, leaf = path
+    if leaf not in _LEAVES:
+        raise KeyError(leaf)
+    name, transpose = _LEAVES[leaf]
+    parts = [p for m in modules for p in _module_name(m)]
+    if transpose:
+        value = np.swapaxes(value, -1, -2)
+    return ".".join(parts + [name]), value
+
+
+def _unstack(path: tuple[str, ...], value: np.ndarray):
+    """Leaves under ``blocks/block/`` hold (depth, ...) stacks -> blocks/<i>/."""
+    for at in range(len(path) - 1):
+        if path[at : at + 2] == ("blocks", "block"):
+            return [
+                (path[: at + 1] + (str(i),) + path[at + 2 :], value[i])
+                for i in range(value.shape[0])
+            ]
+    return [(path, value)]
+
+
+def flax_params_to_torch(params: tp.Mapping[str, tp.Any]) -> dict[str, torch.Tensor]:
+    """Flax ``params`` (nested dicts of arrays) -> the port's state_dict."""
+    out: dict[str, torch.Tensor] = {}
+    unmatched = []
+    for path, value in _flatten(params):
+        try:
+            items = [_convert_leaf(p, v) for p, v in _unstack(path, value)]
+        except KeyError:
+            unmatched.append("/".join(path))
+            continue
+        for name, array in items:
+            if name in out:
+                raise ValueError(f"two flax leaves map to {name}")
+            out[name] = torch.tensor(np.asarray(array, dtype=np.float32))
+    if unmatched:
+        raise KeyError(f"flax leaves with no torch counterpart: {unmatched}")
+    return out

@@ -1,0 +1,90 @@
+"""Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and becomes
+``_build/lib<name>-<hash>.so`` the first time it is needed; the hash of the
+source is in the file name, so an edited source is rebuilt and a stale
+library is never loaded.  There is no fallback: a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["CSRC", "BUILD_DIR", "build", "build_all", "load", "build_logs"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+#: nvcc's output (register and shared-memory use from ``-Xptxas -v``) per
+#: source built by this process.
+build_logs: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        candidates.append(str(Path(CUDA_HOME) / "bin" / "nvcc"))
+    for path in candidates:
+        if path and Path(path).exists():
+            return path
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def _library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names: list[str] | None = None) -> dict[str, Path]:
+    """Compile the named sources (default: every ``csrc/*.cu``), one nvcc
+    process per source, all started together.  Returns name -> library."""
+    if names is None:
+        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    out = {name: _library_path(name) for name in names}
+    todo = {name: lib for name, lib in out.items() if not lib.exists()}
+    if not todo:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name, lib in todo.items():
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [
+            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+            "-o", str(tmp), str(CSRC / f"{name}.cu"),
+        ]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        build_logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, todo[name])  # atomic: concurrent builders agree
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def build(name: str) -> Path:
+    return build_all([name])[name]
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` (built on first use)."""
+    return ctypes.CDLL(str(build(name)))
