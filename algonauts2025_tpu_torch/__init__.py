@@ -1,6 +1,6 @@
-"""PyTorch/CUDA port of algonauts2025_tpu (the trunk training slice).
+"""PyTorch/CUDA port of algonauts2025_tpu (the trunk training and video feature slices).
 
-Mirrors the JAX package's layout (ops/, models/, training/) and imports
+Mirrors the JAX package's layout (ops/, models/, features/, training/) and imports
 nothing of it.  See README.md, section "PyTorch/CUDA port".
 """
 

@@ -5,7 +5,8 @@ The JAX trunk scans one block over depth, so its block params are stacked
 ``blocks.<i>.``.  Flax Dense kernels are ``(in, out)`` and become torch
 Linear ``(out, in)`` weights.  Every leaf must map to a known name: an
 unmatched leaf raises, and loading the result with ``strict=True`` catches
-parameters the tree lacks.
+parameters the tree lacks.  ``vjepa2_params_to_torch`` does the same for
+the V-JEPA2 video backbone, whose scanned layers sit under ``layers/``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import typing as tp
 import numpy as np
 import torch
 
-__all__ = ["flax_params_to_torch"]
+__all__ = ["flax_params_to_torch", "vjepa2_params_to_torch"]
 
 #: flax module names whose torch counterpart has the same name
 _SAME = {
@@ -78,6 +79,59 @@ def _unstack(path: tuple[str, ...], value: np.ndarray):
                 for i in range(value.shape[0])
             ]
     return [(path, value)]
+
+
+_VJEPA2_NORMS = {"norm1", "norm2", "final_norm"}
+_VJEPA2_DENSES = {"query", "key", "value", "proj", "fc1", "fc2"}
+#: leaf of a V-JEPA2 dense -> (torch name, transpose); float Dense or _QDense
+_VJEPA2_DENSE_LEAVES = {
+    "kernel": ("weight", True),
+    "bias": ("bias", False),
+    "kernel_q": ("kernel_q", False),
+    "scale": ("scale", False),
+    "a_scale": ("a_scale", False),
+}
+
+
+def _vjepa2_leaf(path: tuple[str, ...], value: np.ndarray) -> tuple[str, np.ndarray]:
+    *modules, leaf = path
+    if not modules and leaf in ("patch_kernel", "patch_bias"):
+        return leaf, value
+    parent = modules[-1] if modules else None
+    if parent in _VJEPA2_NORMS and leaf in ("scale", "bias"):
+        name, transpose = ("weight" if leaf == "scale" else "bias"), False
+    elif parent in _VJEPA2_DENSES and leaf in _VJEPA2_DENSE_LEAVES:
+        name, transpose = _VJEPA2_DENSE_LEAVES[leaf]
+    else:
+        raise KeyError(leaf)
+    if transpose:
+        value = np.swapaxes(value, -1, -2)
+    return ".".join(modules + [name]), value
+
+
+def vjepa2_params_to_torch(params: tp.Mapping[str, tp.Any]) -> dict[str, torch.Tensor]:
+    """The JAX VJEPA2Backbone's ``params`` -> the port's VJEPA2Backbone state_dict.
+
+    ``layers/...`` leaves hold (num_layers, ...) stacks from ``nn.scan`` and
+    become ``layers.<i>....``.  int8 ``kernel_q`` stays int8; every other
+    leaf becomes float32 (exact for bf16 and fp32 leaves)."""
+    out: dict[str, torch.Tensor] = {}
+    unmatched = []
+    for path, value in _flatten(params):
+        items = [(path, value)]
+        if path[0] == "layers":
+            items = [(("layers", str(i)) + path[1:], value[i]) for i in range(value.shape[0])]
+        try:
+            converted = [_vjepa2_leaf(p, v) for p, v in items]
+        except KeyError:
+            unmatched.append("/".join(path))
+            continue
+        for name, array in converted:
+            dtype = np.int8 if array.dtype == np.int8 else np.float32
+            out[name] = torch.tensor(np.asarray(array, dtype=dtype))
+    if unmatched:
+        raise KeyError(f"flax leaves with no torch counterpart: {unmatched}")
+    return out
 
 
 def flax_params_to_torch(params: tp.Mapping[str, tp.Any]) -> dict[str, torch.Tensor]:

@@ -2,8 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes
 ``_build/lib<name>-<hash>.so`` the first time it is needed; the hash of the
-source is in the file name, so an edited source is rebuilt and a stale
-library is never loaded.  There is no fallback: a failed build raises.
+source and of the shared ``csrc/*.cuh`` headers is in the file name, so an
+edited source or header is rebuilt and a stale library is never loaded.
+There is no fallback: a failed build raises.  The kernel wrappers share the
+rest of their host glue from here: the dtype codes of the C interfaces,
+the typed entry points and the device check.
 """
 
 from __future__ import annotations
@@ -16,7 +19,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "build", "build_all", "load", "build_logs"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "DTYPE_CODES", "build", "build_all", "load", "function",
+           "check_cuda", "build_logs"]
+
+#: the dtype argument of every kernel's C interface
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -40,8 +49,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -88,3 +99,23 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` (built on first use)."""
     return ctypes.CDLL(str(build(name)))
+
+
+@functools.cache
+def function(name: str, symbol: str, argtypes: tuple, restype=ctypes.c_int):
+    """``symbol`` of ``csrc/<name>.cu``'s library, typed with ``argtypes``
+    and ``restype`` (built on first use)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+def check_cuda(kernel: str, contiguous: bool = False, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on a CUDA device (and, with
+    ``contiguous``, is contiguous): the kernel wrappers' first check."""
+    for arg, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{kernel} kernel: {arg} is on {t.device}, not a CUDA device")
+        if contiguous and not t.is_contiguous():
+            raise ValueError(f"{kernel} kernel: {arg} must be contiguous")

@@ -12,10 +12,11 @@ Rotary embedding uses the interleaved (GPT-J) pairing of the JAX package.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
+
+from . import _cuda
 
 __all__ = [
     "apply_rotary",
@@ -72,7 +73,13 @@ def dot_product_attention(
     return out
 
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FORWARD = ("attention", "attn_forward", (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.POINTER(ctypes.c_longlong),
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_void_p,
+))
+_SMEM_BYTES = ("attention", "attn_smem_bytes", (ctypes.c_int,), ctypes.c_longlong)
 
 
 def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -82,10 +89,9 @@ def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     qkv projection) as long as the head dim is contiguous; the output is
     allocated in (B, T, H, Dh) order and returned as a (B, H, T, Dh) view,
     so the caller's merge of the heads is free."""
+    _cuda.check_cuda("attention", q=q, k=k, v=v)
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_cuda:
-            raise ValueError(f"attention kernel: {name} is on {x.device}, not a CUDA device")
-        if x.dtype not in _DTYPES:
+        if x.dtype not in _cuda.DTYPE_CODES:
             raise TypeError(f"attention kernel takes float32 or bfloat16, {name} is {x.dtype}")
         if x.dim() != 4 or x.shape != q.shape:
             raise ValueError(
@@ -101,41 +107,23 @@ def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError(f"attention kernel: empty shape {tuple(q.shape)}")
     if b * h > 65535:
         raise ValueError(f"attention kernel: B*H={b * h} exceeds the grid's 65535")
-    lib = _library()
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *(s for x in (q, k, v, out) for s in x.stride()[:3])
     )
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.attn_forward(
+        err = _cuda.function(*_FORWARD)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            b, h, t, dh, _DTYPES[q.dtype], dh**-0.5, stream,
+            b, h, t, dh, _cuda.DTYPE_CODES[q.dtype], dh**-0.5, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"attention kernel launch failed: CUDA error {err} (shape {tuple(q.shape)}, "
-            f"{lib.attn_smem_bytes(dh)} B of shared memory per block)"
+            f"{_cuda.function(*_SMEM_BYTES)(dh)} B of shared memory per block)"
         )
     launch_counts["attention"] += 1
     return out
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    from ._cuda import load
-
-    lib = load("attention")
-    lib.attn_smem_bytes.argtypes = [ctypes.c_int]
-    lib.attn_smem_bytes.restype = ctypes.c_longlong
-    lib.attn_forward.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_longlong),
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p,
-    ]
-    lib.attn_forward.restype = ctypes.c_int
-    return lib
 
 
 def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,373 @@
+"""w8a8 int8 dense path of the frozen video backbone: plain ops + two kernels.
+
+The port of algonauts2025_tpu/ops/quant.py.  Weights are int8 per output
+column, activations int8 per row (dynamic) or by one calibrated static
+scale.  ``int8_matmul_fused`` (``csrc/w8a8.cu``) and ``int8_mlp_fused``
+(``csrc/int8_mlp.cu``) are the hand-written CUDA counterparts of the two
+Pallas kernels; each has its plain PyTorch version beside it
+(``*_plain``, same arguments), which the wrapper runs for CPU tensors
+only.  On a CUDA tensor the wrapper launches the kernel or raises.
+
+Integer sums in the plain versions are exact: the int8 values are carried
+as float64, whose 53-bit mantissa holds every partial sum here (at most
+K * 127^2 < 2^27), and converted to float32 once, as the int32 -> float32
+conversion of the kernels does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import typing as tp
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import _cuda
+
+__all__ = [
+    "quantize_weight",
+    "int8_matmul",
+    "int8_matmul_fused",
+    "int8_matmul_fused_plain",
+    "int8_mlp_fused",
+    "int8_mlp_fused_plain",
+    "gelu_erf_approx",
+    "QuantDense",
+    "quantize_tree",
+    "quantize_dense_params",
+    "calibrate_quant_scales",
+    "launch_counts",
+]
+
+#: kernel launches since the last reset, counted where each kernel launches
+launch_counts: dict[str, int] = {"w8a8": 0, "int8_mlp": 0}
+
+#: (library, entry point, argument types) of the two kernels' C interfaces
+_W8A8 = ("w8a8", "w8a8_forward", (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
+))
+_INT8_MLP = ("int8_mlp", "int8_mlp_forward", (
+    (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 4
+    + (ctypes.c_void_p,)
+))
+
+
+def _static_scale(s, poison_if: torch.Tensor | None = None) -> torch.Tensor:
+    """Validate a calibrated static activation scale.
+
+    a_scale == 0 is the "uncalibrated" sentinel; running the static path
+    with it would saturate every activation to +/-127 and give plausible
+    finite garbage.  The scale becomes NaN instead, so the output is NaN.
+    ``poison_if`` lets coupled scales (the fused MLP's x/h pair) poison
+    together."""
+    s = torch.as_tensor(s, dtype=torch.float32)
+    bad = s <= 0 if poison_if is None else poison_if
+    return torch.where(bad, torch.full_like(s, float("nan")), s.clamp_min(1e-12))
+
+
+def quantize_weight(w: np.ndarray | torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., K, N) float weights -> (int8 (..., K, N), float32 scale (..., N)).
+
+    Per output column; leading axes (a stacked (L, K, N)) get their own
+    scales.  Rounds half to even, bit for bit as the JAX package's host
+    quantization."""
+    w32 = torch.as_tensor(np.asarray(w, np.float32)) if isinstance(w, np.ndarray) else w.float()
+    scale = (w32.abs().amax(dim=-2) / 127.0).clamp_min(1e-12)
+    w_q = torch.clamp(torch.round(w32 / scale[..., None, :]), -127, 127).to(torch.int8)
+    return w_q, scale
+
+
+def _quantize(xf: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """round(x / sx) clipped to +-127, kept as float (a NaN stays NaN)."""
+    return torch.clamp(torch.round(xf / sx), -127.0, 127.0)
+
+
+def _int_matmul(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Exact integer product of int8-valued xq (M, K) and w_q (K, N), as the
+    float32 rounding of the int32 sums."""
+    return torch.matmul(xq.double(), w_q.double()).float()
+
+
+def int8_matmul(
+    x: torch.Tensor,
+    w_q: torch.Tensor,
+    w_scale: torch.Tensor,
+    x_scale: torch.Tensor | float | None = None,
+) -> torch.Tensor:
+    """x (..., K) float @ int8 (K, N) -> float32 (..., N).
+
+    ``x_scale=None``: dynamic per-row activation scales; a scalar: the
+    static calibrated scale (NaN-poisoned when it is 0)."""
+    lead = x.shape[:-1]
+    xf = x.float().reshape(-1, x.shape[-1])
+    if x_scale is None:
+        sx = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    else:
+        sx = _static_scale(x_scale).to(xf.device)
+    acc = _int_matmul(_quantize(xf, sx), w_q)
+    out = acc * sx * w_scale[None]
+    return out.reshape(*lead, w_q.shape[-1])
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once, as a fused multiply-add.
+
+    The product is exact in float64; the float64 sum is rounded to odd
+    (TwoSum gives its exact error), which makes the final rounding to
+    float32 exact as well."""
+    a, b, c = torch.broadcast_tensors(a.double(), b.double(), c.double())
+    p = a * b
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=s.device)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even, torch.nextafter(s, torch.where(err > 0, inf, -inf)), s)
+    return s.float()
+
+
+def _dequant(acc, scale, w_scale, bias):
+    """The kernels' epilogue: fma(acc, scale * w_scale[n], bias[n]) in float32
+    (as XLA fuses the JAX kernels' ``acc * scale + bias``)."""
+    return _fma(acc, (scale * w_scale.float())[None], bias.float()[None])
+
+
+def _bias(bias: torch.Tensor | None, n: int, device) -> torch.Tensor:
+    return torch.zeros(n, dtype=torch.float32, device=device) if bias is None else bias.float()
+
+
+def int8_matmul_fused_plain(
+    x: torch.Tensor,
+    w_q: torch.Tensor,
+    w_scale: torch.Tensor,
+    x_scale: torch.Tensor | float,
+    bias: torch.Tensor | None = None,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The plain version of ``int8_matmul_fused`` on any device, equal to
+    the kernel bit for bit."""
+    k, n = w_q.shape
+    sx = _static_scale(x_scale).to(x.device)
+    acc = _int_matmul(_quantize(x.float().reshape(-1, k), sx), w_q)
+    out = _dequant(acc, sx, w_scale, _bias(bias, n, x.device)).to(out_dtype)
+    return out.reshape(*x.shape[:-1], n)
+
+
+def _check_float(name: str, x: torch.Tensor, out_dtype: torch.dtype) -> None:
+    if x.dtype not in _cuda.DTYPE_CODES or out_dtype not in _cuda.DTYPE_CODES:
+        raise TypeError(
+            f"{name} kernel takes float32 or bfloat16 in and out, got {x.dtype} -> {out_dtype}"
+        )
+    if x.numel() == 0:
+        raise ValueError(f"{name} kernel: empty input {tuple(x.shape)}")
+
+
+def int8_matmul_fused(
+    x: torch.Tensor,
+    w_q: torch.Tensor,
+    w_scale: torch.Tensor,
+    x_scale: torch.Tensor | float,
+    bias: torch.Tensor | None = None,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Static-scale w8a8 dense: float x (..., K) @ int8 (K, N) + bias -> out_dtype.
+
+    The kernel (CUDA tensors) or its plain version (CPU tensors); the two
+    agree bit for bit.  ``x_scale`` is the calibrated static scale; 0
+    poisons the output with NaN."""
+    lead = x.shape[:-1]
+    k, n = w_q.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"int8_matmul_fused: x has K={x.shape[-1]}, w_q is {tuple(w_q.shape)}")
+    if x.device.type == "cpu":
+        return int8_matmul_fused_plain(x, w_q, w_scale, x_scale, bias, out_dtype)
+    x2 = x.reshape(-1, k)
+    sx = _static_scale(x_scale).to(x.device).reshape(1)
+    bias, w_scale = _bias(bias, n, x.device), w_scale.float()
+    _check_float("w8a8", x2, out_dtype)
+    _cuda.check_cuda("w8a8", contiguous=True, x=x2, w_q=w_q, w_scale=w_scale, bias=bias,
+                     x_scale=sx)
+    if w_q.dtype != torch.int8:
+        raise TypeError(f"w8a8 kernel: w_q must be int8, got {w_q.dtype}")
+    out = torch.empty((x2.shape[0], n), dtype=out_dtype, device=x.device)
+    codes = _cuda.DTYPE_CODES
+    with torch.cuda.device(x.device):
+        err = _cuda.function(*_W8A8)(
+            x2.data_ptr(), codes[x2.dtype], w_q.data_ptr(), w_scale.data_ptr(),
+            bias.data_ptr(), sx.data_ptr(), out.data_ptr(), codes[out_dtype],
+            x2.shape[0], n, k, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"w8a8 kernel launch failed: CUDA error {err} (M={x2.shape[0]}, K={k}, N={n})")
+    launch_counts["w8a8"] += 1
+    return out.reshape(*lead, n)
+
+
+def gelu_erf_approx(x: torch.Tensor) -> torch.Tensor:
+    """Exact-form gelu with Abramowitz-Stegun 7.1.26 for erf (max |err|
+    1.5e-7), operation by operation as the JAX package's _gelu_erf_approx
+    and the fused MLP kernel compute it."""
+    z = x * 0.7071067811865476
+    a = torch.abs(z)
+    t = 1.0 / (1.0 + 0.3275911 * a)
+    poly = t * (
+        0.254829592
+        + t * (-0.284496736 + t * (1.421413741 + t * (-1.453152027 + t * 1.061405429)))
+    )
+    erf_abs = 1.0 - poly * torch.exp(-a * a)
+    erf = torch.sign(z) * erf_abs
+    return 0.5 * x * (1.0 + erf)
+
+
+def _coupled_scales(x_scale, h_scale, device) -> torch.Tensor:
+    """(sx, sh), both NaN when either is uncalibrated: the int8 cast between
+    the two GEMMs would otherwise launder a NaN hidden state."""
+    sx = torch.as_tensor(x_scale, dtype=torch.float32).to(device)
+    sh = torch.as_tensor(h_scale, dtype=torch.float32).to(device)
+    bad = (sx <= 0) | (sh <= 0)
+    return torch.stack([_static_scale(sx, poison_if=bad), _static_scale(sh, poison_if=bad)])
+
+
+def int8_mlp_fused_plain(
+    x: torch.Tensor,
+    w1_q: torch.Tensor,
+    w1_scale: torch.Tensor,
+    b1: torch.Tensor,
+    w2_q: torch.Tensor,
+    w2_scale: torch.Tensor,
+    b2: torch.Tensor,
+    x_scale: torch.Tensor | float,
+    h_scale: torch.Tensor | float,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The plain version of ``int8_mlp_fused`` on any device."""
+    k = w1_q.shape[0]
+    sx, sh = _coupled_scales(x_scale, h_scale, x.device)
+    xf = x.float().reshape(-1, k)
+    h = gelu_erf_approx(_dequant(_int_matmul(_quantize(xf, sx), w1_q), sx, w1_scale, b1))
+    acc = _int_matmul(_quantize(h, sh), w2_q)
+    return _dequant(acc, sh, w2_scale, b2).to(out_dtype).reshape(*x.shape[:-1], k)
+
+
+def int8_mlp_fused(
+    x: torch.Tensor,
+    w1_q: torch.Tensor,
+    w1_scale: torch.Tensor,
+    b1: torch.Tensor,
+    w2_q: torch.Tensor,
+    w2_scale: torch.Tensor,
+    b2: torch.Tensor,
+    x_scale: torch.Tensor | float,
+    h_scale: torch.Tensor | float,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Static-scale w8a8 MLP: gelu(x @ w1 + b1) @ w2 + b2, quantization inside.
+
+    ``x_scale`` / ``h_scale`` are the calibrated scales of the input and of
+    the post-gelu hidden state.  The kernel (CUDA tensors) or its plain
+    version (CPU tensors)."""
+    lead = x.shape[:-1]
+    k, f = w1_q.shape
+    if x.shape[-1] != k or w2_q.shape != (f, k):
+        raise ValueError(
+            f"int8_mlp_fused: x (..., {x.shape[-1]}), w1 {tuple(w1_q.shape)}, w2 {tuple(w2_q.shape)}"
+        )
+    if x.device.type == "cpu":
+        return int8_mlp_fused_plain(x, w1_q, w1_scale, b1, w2_q, w2_scale, b2, x_scale, h_scale,
+                                    out_dtype)
+    sc = _coupled_scales(x_scale, h_scale, x.device)
+    x2 = x.reshape(-1, k)
+    w1_scale, b1, w2_scale, b2 = (t.float() for t in (w1_scale, b1, w2_scale, b2))
+    _check_float("int8_mlp", x2, out_dtype)
+    _cuda.check_cuda("int8_mlp", contiguous=True, x=x2, w1_q=w1_q, w1_scale=w1_scale, b1=b1,
+                     w2_q=w2_q, w2_scale=w2_scale, b2=b2, scales=sc)
+    if w1_q.dtype != torch.int8 or w2_q.dtype != torch.int8:
+        raise TypeError("int8_mlp kernel: w1_q and w2_q must be int8")
+    m = x2.shape[0]
+    hidden = torch.empty((m, f), dtype=torch.int8, device=x.device)
+    out = torch.empty((m, k), dtype=out_dtype, device=x.device)
+    codes = _cuda.DTYPE_CODES
+    with torch.cuda.device(x.device):
+        err = _cuda.function(*_INT8_MLP)(
+            x2.data_ptr(), codes[x2.dtype], w1_q.data_ptr(), w1_scale.data_ptr(),
+            b1.data_ptr(), w2_q.data_ptr(), w2_scale.data_ptr(), b2.data_ptr(),
+            sc.data_ptr(), hidden.data_ptr(), out.data_ptr(), codes[out_dtype],
+            m, k, f, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"int8_mlp kernel launch failed: CUDA error {err} (M={m}, K={k}, F={f})")
+    launch_counts["int8_mlp"] += 1
+    return out.reshape(*lead, k)
+
+
+class QuantDense:
+    """Functional int8 dense over a params dict {kernel_q, scale, a_scale?, bias?}."""
+
+    @staticmethod
+    def apply(params: dict, x: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        # a calibrated static scale is honoured when the dict carries one
+        y = int8_matmul(x, params["kernel_q"], params["scale"], x_scale=params.get("a_scale"))
+        if "bias" in params:
+            y = y + params["bias"].float()
+        return y.to(out_dtype)
+
+
+_DENSE_NAMES = ("query", "key", "value", "proj", "fc1", "fc2")
+
+
+def quantize_tree(params: dict, names: tuple[str, ...] = _DENSE_NAMES) -> dict:
+    """Quantize every named dense sub-dict {kernel, bias?} of a float params tree."""
+
+    def walk(node):
+        out = {}
+        for key, value in node.items():
+            if isinstance(value, dict) and key in names and "kernel" in value:
+                out[key] = quantize_dense_params(value)
+            elif isinstance(value, dict):
+                out[key] = walk(value)
+            else:
+                out[key] = value
+        return out
+
+    return walk(params)
+
+
+def quantize_dense_params(dense_params: dict) -> dict:
+    """{'kernel', 'bias'?} -> {'kernel_q', 'scale', 'a_scale', 'bias'?}.
+
+    A stacked (L, K, N) kernel gets per-layer scales; ``a_scale`` starts at
+    0, the uncalibrated sentinel."""
+    kernel = dense_params["kernel"]
+    w_q, scale = quantize_weight(kernel)
+    out = {"kernel_q": w_q, "scale": scale,
+           "a_scale": torch.zeros(tuple(kernel.shape[:-2]), device=w_q.device)}
+    if "bias" in dense_params:
+        out["bias"] = torch.as_tensor(dense_params["bias"]).float()
+    return out
+
+
+def calibrate_quant_scales(model: nn.Module, *inputs: tp.Any, margin: float = 1.0) -> nn.Module:
+    """Set static activation scales from one observed forward pass.
+
+    Every quantized dense of ``model`` (a module with an ``observing`` flag,
+    ``absmax`` and an ``a_scale`` buffer) records its input absmax during
+    one forward of ``inputs``; each ``a_scale`` then becomes
+    ``max(absmax * margin / 127, 1e-12)``.  Observing modules quantize
+    dynamically, so a_scale == 0 does not corrupt deeper statistics.
+    Updates ``model`` in place and returns it."""
+    denses = [m for m in model.modules() if hasattr(m, "observing")]
+    for m in denses:
+        m.observing, m.absmax = True, None
+    try:
+        with torch.no_grad():
+            model(*inputs)
+    finally:
+        for m in denses:
+            m.observing = False
+    for m in denses:
+        if m.absmax is not None:
+            m.a_scale.copy_((m.absmax * margin / 127.0).clamp_min(1e-12))
+    return model

@@ -6,40 +6,64 @@
 Phases (any failure exits non-zero):
 
 1. Print the card's name and power limit; build every kernel of
-   ``algonauts2025_tpu_torch/csrc`` with nvcc for sm_90a.
+   ``algonauts2025_tpu_torch/csrc`` with nvcc for sm_90a (one nvcc per
+   source, all started together).
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge shapes, and the kernel's autograd
-   gradients against autograd of the plain version; time the kernel, the
-   plain version and the library call (``scaled_dot_product_attention``,
-   a yardstick the port never calls).
+   main paths' shapes and at edge shapes (the trunk attention's autograd
+   gradients too); time the kernel, the plain version and one library
+   call that computes the same function (a yardstick the port never
+   calls): ``scaled_dot_product_attention`` for the attention kernels,
+   ``torch._int_mm`` plus the elementwise quant passes for the int8 ones.
 3. A small FmriEncoder trained on the card and on the CPU from the same
-   weights must agree step by step.
-4. The main path at full width: ``BrainTrainer`` on the flagship
+   weights must agree step by step; a small static-int8 V-JEPA2 backbone
+   (1024 tokens, so every video kernel dispatches) must give the same
+   features on the card as on the CPU from the same weights.
+4. The trunk's main path at full width: ``BrainTrainer`` on the flagship
    FmriEncoder configured as ``bench.py``'s ``bench_train`` (0.94 B
    params, batch 16 x 298 steps, remat, InfoNCE, bf16-mu Adam, OneCycle),
    with random weights from a seed: ``init_state``, train steps,
-   ``evaluate`` with the default grid's three metrics, ``predict``.  The
-   kernels' launch counters are zeroed just before and read just after.
+   ``evaluate`` with the default grid's three metrics, ``predict``.
+5. The video path at full ViT-G width and depth (40 layers, 1408 wide,
+   8192 tokens a window), static int8 as the production feature runs it:
+   seeded float weights quantized per layer, calibration on the seeded
+   input, 10 seeded uint8 windows through ``encode_window_stream`` in
+   batches of 4, then ``aggregate_layers`` down to the trunk's video input.
+   The first batch is encoded again with every kernel of the backbone
+   swapped for its plain version on the card, and the token-pooled
+   features of the two must agree.
 
-The line before the last is the JSON ``kernels`` record; the last line is
-``{"ok": true, "device": {...}}``.
+Before each main path (phases 4 and 5) every kernel's launch counter is
+zeroed, and it is read just after.  The line before the last is the JSON
+``kernels`` record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
 from algonauts2025_tpu_torch.data import SegmentData
+from algonauts2025_tpu_torch.features.video import (
+    TorchVideoBackbone, _calibrated_static_model, encode_window_stream,
+)
 from algonauts2025_tpu_torch.models import FmriEncoderConfig
+from algonauts2025_tpu_torch.models.backbones import vjepa2
+from algonauts2025_tpu_torch.models.backbones.vjepa2 import (
+    VJEPA2_VITG, VJEPA2Backbone, VJEPA2Config, _QDense,
+)
 from algonauts2025_tpu_torch.ops import _cuda
 from algonauts2025_tpu_torch.ops import attention as attn
+from algonauts2025_tpu_torch.ops import flash_attention as flash
+from algonauts2025_tpu_torch.ops import quant
+from algonauts2025_tpu_torch.ops.layer_agg import aggregate_layers
 from algonauts2025_tpu_torch.training import (
     BrainTrainer, OptimConfig, TrainerConfig, build_loss, build_metric,
 )
@@ -49,13 +73,15 @@ SEED = 0
 FLAGSHIP = (16, 8, 298, 384)
 TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 
-# published dense peaks (NVIDIA data sheets): fp32 without tensor cores,
-# bf16 tensor cores, memory bytes/s
+# published dense peaks (NVIDIA data sheets, which give the tensor-core
+# rates with sparsity at twice these): fp32 without tensor cores, bf16 and
+# int8 tensor cores, memory bytes/s
 PEAKS = {
-    "PCIe": {"float32": 51e12, "bfloat16": 756e12, "bytes": 2.0e12},
-    "NVL": {"float32": 60e12, "bfloat16": 835e12, "bytes": 3.9e12},
-    "SXM": {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12},
+    "PCIe": {"float32": 51e12, "bfloat16": 756e12, "int8": 1513e12, "bytes": 2.0e12},
+    "NVL": {"float32": 60e12, "bfloat16": 835e12, "int8": 1670e12, "bytes": 3.9e12},
+    "SXM": {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12, "bytes": 3.35e12},
 }
+COUNTERS = (attn.launch_counts, flash.launch_counts, quant.launch_counts)
 
 
 def log(msg: str) -> None:
@@ -84,6 +110,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def reset_counts() -> None:
+    for counts in COUNTERS:
+        for key in counts:
+            counts[key] = 0
+
+
+def bound(flops: float, nbytes: float, peak_ops: float, peaks: dict[str, float]) -> tuple[float, str]:
+    """The least time for the work: the larger of operations over the peak
+    rate of their type and bytes (each input read once, each output
+    written once) over the memory rate, in ms, and which of the two binds."""
+    by_ops, by_bytes = flops / peak_ops, nbytes / peaks["bytes"]
+    return 1e3 * max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
+
+
+def kernel_record(name, source, replaces, err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by):
+    return {"name": name, "route": "cuda", "source": f"algonauts2025_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": None, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def card() -> str:
@@ -171,21 +218,334 @@ def check_attention(peaks: dict[str, float]) -> dict:
         f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
     log(f"attention {FLAGSHIP} bf16: kernel {bf16_ms:.4f} ms, bound {bf16_bound:.4f} ms")
-    return {
-        "name": "attention",
-        "route": "cuda",
-        "source": "algonauts2025_tpu_torch/csrc/attention.cu",
-        "replaces": "algonauts2025_tpu/ops/attention.py:80 (_attn_kernel)",
-        "launches": None,  # filled from the main path's run
-        "max_abs_err": flagship_err,
-        "tol": TOL[torch.float32],
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "library_ms": library_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
-    }
+    return kernel_record("attention", "attention.cu",
+                         "algonauts2025_tpu/ops/attention.py:80 (_attn_kernel)", flagship_err,
+                         kernel_ms, plain_ms, library_ms, bound_ms,
+                         "operations" if by_ops >= by_bytes else "bytes")
+
+
+# ViT-G at a window batch of 4: (B*N, D) activations, D, MLP width
+VITG_M, VITG_D, VITG_F = 4 * 8192, 1408, 6144
+
+
+def int8_dense(k, n, gen):
+    """Seeded float weights at a dense layer's init scale, quantized per column."""
+    w = torch.randn((k, n), generator=gen, device="cuda") / k**0.5
+    return quant.quantize_weight(w)
+
+
+def rand_bf16(shape, gen):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def absmax_scale(x: torch.Tensor) -> torch.Tensor:
+    return (x.float().abs().amax() / 127.0).reshape(())
+
+
+def check_w8a8(peaks: dict[str, float]) -> dict:
+    """Kernel B against its plain version: exact equality."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    main_err = None
+    for m, k, n, out_dtype in [(VITG_M, VITG_D, VITG_D, torch.bfloat16),
+                               (130, 384, 640, torch.float32), (1, 128, 128, torch.bfloat16)]:
+        x = rand_bf16((m, k), gen)
+        w_q, w_s = int8_dense(k, n, gen)
+        bias = 0.1 * torch.randn(n, generator=gen, device="cuda")
+        sx = absmax_scale(x)
+        out = quant.int8_matmul_fused(x, w_q, w_s, sx, bias=bias, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        ref = quant.int8_matmul_fused_plain(x, w_q, w_s, sx, bias=bias, out_dtype=out_dtype)
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = out.dtype == out_dtype and torch.equal(out, ref)
+        log(f"w8a8 ({m}, {k}, {n}) -> {str(out_dtype)[6:]}: max_abs_err {err:.3e} "
+            f"(exact equality) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the w8a8 kernel is not equal to its plain version")
+        if m == VITG_M:
+            main_err = err
+    poisoned = quant.int8_matmul_fused(x, w_q, w_s, torch.zeros((), device="cuda"), bias=bias)
+    if not torch.isnan(poisoned).all():
+        raise SystemExit("the w8a8 kernel did not poison a_scale = 0 with NaN")
+    log("w8a8 a_scale = 0: all NaN ok")
+
+    m, k, n = VITG_M, VITG_D, VITG_D
+    x = rand_bf16((m, k), gen)
+    w_q, w_s = int8_dense(k, n, gen)
+    bias = 0.1 * torch.randn(n, generator=gen, device="cuda")
+    sx = absmax_scale(x)
+    sxs = quant._static_scale(sx)
+
+    def library():
+        xq = torch.clamp(torch.round(x.float() / sxs), -127, 127).to(torch.int8)
+        return (torch._int_mm(xq, w_q).float() * (sxs * w_s) + bias).to(torch.bfloat16)
+
+    kernel_ms = time_ms(lambda: quant.int8_matmul_fused(x, w_q, w_s, sx, bias=bias))
+    plain_ms = time_ms(lambda: quant.int8_matmul_fused_plain(x, w_q, w_s, sx, bias=bias), iters=5)
+    library_ms = time_ms(library)
+    ops = 2 * m * k * n
+    nbytes = m * k * 2 + k * n + 8 * n + m * n * 2
+    bound_ms, bound_by = bound(ops, nbytes, peaks["int8"], peaks)
+    log(f"w8a8 ({m}, {k}, {n}) bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"_int_mm + quant passes {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({ops / 1e9:.1f} GOP, {nbytes / 1e6:.1f} MB)")
+    return kernel_record("w8a8", "w8a8.cu", "algonauts2025_tpu/ops/quant.py:107 (_fused_w8a8_kernel)",
+                         main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
+
+
+def mlp_case(m, k, f, gen):
+    x = rand_bf16((m, k), gen)
+    w1_q, w1_s = int8_dense(k, f, gen)
+    w2_q, w2_s = int8_dense(f, k, gen)
+    b1 = 0.1 * torch.randn(f, generator=gen, device="cuda")
+    b2 = 0.1 * torch.randn(k, generator=gen, device="cuda")
+    sx = absmax_scale(x)
+    sxs = quant._static_scale(sx)
+    h = quant.gelu_erf_approx(quant._dequant(quant._int_matmul(quant._quantize(x.float(), sxs), w1_q),
+                                             sxs, w1_s, b1))
+    sh = absmax_scale(h)
+    return (x, w1_q, w1_s, b1, w2_q, w2_s, b2), sx, sh
+
+
+def check_int8_mlp(peaks: dict[str, float]) -> dict:
+    """Kernel C against its plain version: relative L2 <= 1e-3 and max-abs
+    <= 1e-2 max|ref| (the gelu's expf against PyTorch's exp can flip rare
+    int8 roundings of the hidden state); the share of outputs that are not
+    bit-equal is reported."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    main_err = None
+    for m, k, f in [(VITG_M, VITG_D, VITG_F), (130, 256, 512)]:
+        args, sx, sh = mlp_case(m, k, f, gen)
+        out = quant.int8_mlp_fused(*args, sx, sh, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = quant.int8_mlp_fused_plain(*args, sx, sh)
+        o, r = out.float(), ref.float()
+        err = (o - r).abs().max().item()
+        rel = (torch.linalg.vector_norm(o - r) / torch.linalg.vector_norm(r)).item()
+        unequal = (out != ref).float().mean().item()
+        ok = rel <= 1e-3 and err <= 1e-2 * r.abs().max().item()
+        log(f"int8_mlp ({m}, {k}, {f}): rel L2 {rel:.3e} (tol 1e-3), max_abs_err {err:.3e} "
+            f"(tol {1e-2 * r.abs().max().item():.3e}), not bit-equal {unequal:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the int8 MLP kernel disagrees with its plain version")
+        if m == VITG_M:
+            main_err = err
+    zero = torch.zeros((), device="cuda")
+    for bad in ((zero, sh), (sx, zero)):
+        if not torch.isnan(quant.int8_mlp_fused(*args, *bad)).all():
+            raise SystemExit("the int8 MLP kernel did not poison both scales together")
+    log("int8_mlp x_scale = 0 / h_scale = 0: all NaN ok")
+
+    m, k, f = VITG_M, VITG_D, VITG_F
+    args, sx, sh = mlp_case(m, k, f, gen)
+    x, w1_q, w1_s, b1, w2_q, w2_s, b2 = args
+    sc = quant._coupled_scales(sx, sh, "cuda")
+
+    def library():
+        xq = torch.clamp(torch.round(x.float() / sc[0]), -127, 127).to(torch.int8)
+        h = quant.gelu_erf_approx(torch._int_mm(xq, w1_q).float() * (sc[0] * w1_s) + b1)
+        hq = torch.clamp(torch.round(h / sc[1]), -127, 127).to(torch.int8)
+        return (torch._int_mm(hq, w2_q).float() * (sc[1] * w2_s) + b2).to(torch.bfloat16)
+
+    kernel_ms = time_ms(lambda: quant.int8_mlp_fused(*args, sx, sh), iters=10)
+    plain_ms = time_ms(lambda: quant.int8_mlp_fused_plain(*args, sx, sh), iters=3, warmup=1)
+    library_ms = time_ms(library, iters=10)
+    ops = 2 * m * k * f * 2
+    nbytes = m * k * 2 + 2 * k * f + 8 * (f + k) + m * k * 2
+    bound_ms, bound_by = bound(ops, nbytes, peaks["int8"], peaks)
+    log(f"int8_mlp ({m}, {k}, {f}) bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"_int_mm + quant/gelu passes {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({ops / 1e12:.3f} TOP, {nbytes / 1e6:.1f} MB)")
+    return kernel_record("int8_mlp", "int8_mlp.cu",
+                         "algonauts2025_tpu/ops/quant.py:230 (_fused_mlp_kernel)",
+                         main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
+
+
+# one ViT-G window batch of 4: (B, H, T, d) of its attention
+VITG_ATTN = (4, 22, 8192, 64)
+# relative L2 limits of the attention kernel against its plain version.  At
+# 8192 standard-normal keys a row's softmax spreads over ~T/e keys, so a
+# dropped or doubled 64-key tile moves the output by ~9 % in relative L2;
+# the kernel's running max rounds p to bf16 under other shifts than the
+# plain version's final max, which with the bf16 output's rounding leaves a
+# few 1e-3 in bf16, while fp32 differs only in the order of its sums.
+FLASH_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def check_flash(peaks: dict[str, float]) -> dict:
+    """Kernel A through the backbone's wrapper against its plain version
+    (computed in query chunks): max-abs within the port's tolerance and
+    1e-2 max|ref|, and relative L2 within ``FLASH_REL``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    main_err = None
+    cases = [(VITG_ATTN, torch.bfloat16, True, 1.0),
+             ((1, 22, 8192, 64), torch.float32, True, 1.0),
+             ((2, 3, 1024, 64), torch.float32, False, 1.0),
+             ((1, 2, 1, 64), torch.float32, False, 1.0),
+             ((1, 2, 37, 64), torch.bfloat16, False, 1.0),
+             ((1, 2, 1000, 64), torch.float32, True, 1.0),
+             ((1, 2, 1024, 64), torch.float32, False, 30.0)]
+    for shape, dtype, strided, scale in cases:
+        q, k, v = qkv(shape, torch.float32, strided, gen)
+        q, k, v = (q * scale).to(dtype), (k * scale).to(dtype), v.to(dtype)
+        out = flash.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = flash.bounded_attention_plain(q, k, v)
+        o, r = out.float(), ref.float()
+        err = (o - r).abs().max().item()
+        rel = (torch.linalg.vector_norm(o - r) / torch.linalg.vector_norm(r)).item()
+        limit = min(TOL[dtype], 1e-2 * r.abs().max().item())
+        ok = (out.dtype == dtype and out.shape == q.shape and torch.isfinite(out).all().item()
+              and err <= limit and rel <= FLASH_REL[dtype])
+        log(f"flash_attention {shape} {str(dtype)[6:]}{' strided' if strided else ''}"
+            f"{f' x{scale:g}' if scale != 1 else ''}: max_abs_err {err:.3e} (tol {limit:.3e}), "
+            f"rel L2 {rel:.3e} (tol {FLASH_REL[dtype]:.0e}), max|ref| {r.abs().max().item():.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the flash attention kernel disagrees with its plain version")
+        if shape == VITG_ATTN:
+            main_err = err
+
+    b, h, t, d = VITG_ATTN
+    q, k, v = qkv(VITG_ATTN, torch.bfloat16, True, gen)
+    kernel_ms = time_ms(lambda: flash.flash_attention(q, k, v), iters=5, warmup=1)
+    plain_ms = time_ms(lambda: flash.bounded_attention_plain(q, k, v), iters=2, warmup=1)
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), iters=10)
+    flops = 4 * b * h * t * t * d
+    nbytes = 4 * b * h * t * d * 2
+    bound_ms, bound_by = bound(flops, nbytes, peaks["bfloat16"], peaks)
+    log(f"flash_attention {VITG_ATTN} bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB)")
+    return kernel_record("flash_attention", "flash_attention.cu",
+                         "algonauts2025_tpu/ops/flash_attention.py:212 (_bounded_kernel)",
+                         main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
+
+
+@torch.no_grad()
+def quantized_backbone(cfg: VJEPA2Config, gen: torch.Generator, device="cuda") -> VJEPA2Backbone:
+    """A dynamic-scale int8 backbone from seeded float weights at a dense
+    layer's init scale (std 1/sqrt(fan_in)), quantized layer by layer as
+    params_from_hf would quantize a checkpoint; LayerNorm gain 1, bias 0."""
+    model = VJEPA2Backbone(cfg, token_pool=True, device=device)
+    k_patch = model.patch_kernel.shape[0]
+    model.patch_kernel.copy_(torch.randn(model.patch_kernel.shape, generator=gen, device=device)
+                             / k_patch**0.5)
+    for module in model.modules():
+        if isinstance(module, _QDense):
+            w_q, w_s = quant.quantize_weight(
+                torch.randn((module.in_features, module.features), generator=gen, device=device)
+                / module.in_features**0.5)
+            module.kernel_q.copy_(w_q)
+            module.scale.copy_(w_s)
+    return model
+
+
+def check_small_backbone_against_cpu() -> None:
+    """A small static-int8 backbone, 1024 tokens so that all three video
+    kernels dispatch on the card, against the CPU's plain path from the
+    same weights: cosine of the token-pooled features >= 0.999."""
+    cfg = VJEPA2Config(crop_size=128, frames_per_clip=32, hidden_size=128, num_layers=2,
+                       num_heads=2, mlp_ratio=2.0, quantize=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    model = quantized_backbone(cfg, gen)
+    cpu_model = VJEPA2Backbone(cfg, token_pool=True, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_model = _calibrated_static_model(cpu_model, 32, 128)
+    model.load_state_dict({k: v.cuda() for k, v in cpu_model.state_dict().items()})
+    model.set_quant_static()
+    gpu = TorchVideoBackbone(model, n_frames=32, crop_size=128)
+    cpu = TorchVideoBackbone(cpu_model, n_frames=32, crop_size=128, device="cpu")
+    windows = np.random.default_rng(SEED + 5).integers(0, 256, (2, 32, 144, 256, 3), dtype=np.uint8)
+    reset_counts()
+    a = gpu.encode_windows(windows).astype(np.float64)
+    counts = {**flash.launch_counts, **quant.launch_counts}
+    b = cpu.encode_windows(windows).astype(np.float64)
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    rel = np.abs(a - b).max() / np.abs(b).max()
+    log(f"small int8 backbone (2 layers, 128 wide, 1024 tokens), card vs CPU: min cosine "
+        f"{cos.min():.6f} (tol 0.999), worst |diff| / max|ref| {rel:.3e}, launches {counts}")
+    if not cos.min() >= 0.999 or min(counts.values()) == 0:
+        raise SystemExit("the small int8 backbone on the card disagrees with the CPU")
+
+
+def plain_features(encode, windows: np.ndarray) -> np.ndarray:
+    """``encode(windows)`` with every kernel of the backbone swapped for its
+    plain version on the card: the same model, scales and inputs."""
+    reset_counts()
+    with mock.patch.multiple(vjepa2, flash_attention=flash.bounded_attention_plain,
+                             int8_matmul_fused=quant.int8_matmul_fused_plain,
+                             int8_mlp_fused=quant.int8_mlp_fused_plain):
+        out = encode(windows)
+    launched = {**flash.launch_counts, **quant.launch_counts}
+    if any(launched.values()):
+        raise SystemExit(f"the plain reference launched kernels: {launched}")
+    return out
+
+
+def video_path(n_windows: int = 10, window_batch: int = 4) -> dict:
+    """The video path at full ViT-G width and depth through the kernels."""
+    cfg = dataclasses.replace(VJEPA2_VITG, quantize=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    t0 = time.perf_counter()
+    model = quantized_backbone(cfg, gen)
+    reset_counts()
+    model = _calibrated_static_model(model, cfg.frames_per_clip, cfg.crop_size)
+    torch.cuda.synchronize()
+    calib = {**flash.launch_counts, **quant.launch_counts}
+    log(f"ViT-G built and calibrated in {time.perf_counter() - t0:.1f} s; calibration launches {calib}")
+    if calib != {"flash_attention": cfg.num_layers, "w8a8": 0, "int8_mlp": 0}:
+        raise SystemExit("calibration did not launch the kernels as expected")
+    backbone = TorchVideoBackbone(model, n_frames=cfg.frames_per_clip, crop_size=cfg.crop_size)
+    rng = np.random.default_rng(SEED + 6)
+    windows = [rng.integers(0, 256, (cfg.frames_per_clip, 288, 512, 3), dtype=np.uint8)
+               for _ in range(n_windows)]
+    batch_s = []
+    encode = backbone.encode_windows
+
+    def timed(batch):
+        t = time.perf_counter()
+        out = encode(batch)  # ends in a device-to-host copy: synchronises
+        batch_s.append(time.perf_counter() - t)
+        return out
+
+    backbone.encode_windows = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    feats = encode_window_stream(backbone, windows, window_batch)
+    torch.cuda.synchronize()
+    launches = {**flash.launch_counts, **quant.launch_counts}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_batches = -(-n_windows // window_batch)
+    expected = {"flash_attention": cfg.num_layers * n_batches,
+                "w8a8": 4 * cfg.num_layers * n_batches, "int8_mlp": cfg.num_layers * n_batches}
+    trunk_input = aggregate_layers(feats, [0.5, 0.75, 1.0])
+    log(f"video features {feats.shape}, trunk input {trunk_input.shape}; batch seconds {batch_s}")
+    log(f"video launches {launches} (expected {expected}); peak device memory {peak_gb:.2f} GB")
+    want = (cfg.num_layers + 1, cfg.hidden_size, n_windows)
+    if feats.shape != want or not np.isfinite(feats).all():
+        raise SystemExit(f"video features: shape {feats.shape} (want {want}) or non-finite values")
+    if trunk_input.shape != (2, cfg.hidden_size, n_windows) or not np.isfinite(trunk_input).all():
+        raise SystemExit(f"aggregate_layers gave {trunk_input.shape} or non-finite values")
+    if launches != expected:
+        raise SystemExit("the video path did not launch the kernels as expected")
+
+    # the first batch again through the plain versions: cosine and relative
+    # L2 of each window's token-pooled feature vector, layer by layer
+    t0 = time.perf_counter()
+    ref = plain_features(encode, np.stack(windows[:window_batch])).astype(np.float64)
+    got = feats[:, :, :window_batch].transpose(2, 0, 1).astype(np.float64)  # (B, L+1, D)
+    norms = np.linalg.norm(ref, axis=-1)
+    cos = (got * ref).sum(-1) / (np.linalg.norm(got, axis=-1) * norms)
+    rel = np.linalg.norm(got - ref, axis=-1) / norms
+    log(f"video features, kernels vs plain on the card ({window_batch} windows, "
+        f"{time.perf_counter() - t0:.1f} s): min cosine {cos.min():.7f} (tol 0.9999), "
+        f"max rel L2 {rel.max():.3e} (tol 1e-2) at layer {int(rel.max(axis=0).argmax())}, "
+        f"last layer {rel[:, -1].max():.3e}")
+    if not (cos.min() >= 0.9999 and rel.max() <= 1e-2):
+        raise SystemExit("the video features through the kernels disagree with the plain versions")
+    return {"launches": launches, "batch_s": statistics.mean(batch_s[1:]), "peak_gb": peak_gb}
 
 
 FLAGSHIP_DIMS = {"text": (2, 3072), "audio": (2, 1024), "video": (2, 1408)}
@@ -260,8 +620,7 @@ def main_path(n_steps: int = 5, n_eval: int = 2, n_predict: int = 1) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    for key in attn.launch_counts:
-        attn.launch_counts[key] = 0
+    reset_counts()
     trainer.init_state(train[0], total_steps=100)
     n_params = sum(p.numel() for p in trainer.model.parameters())
     step_s, losses = [], []
@@ -306,13 +665,19 @@ def main() -> None:
     peaks = peaks_for(kind)
     torch.manual_seed(SEED)
     build_kernels()
-    attention = check_attention(peaks)
+    kernels = [check_attention(peaks), check_flash(peaks), check_w8a8(peaks), check_int8_mlp(peaks)]
     check_small_against_cpu()
+    check_small_backbone_against_cpu()
     run = main_path()
-    attention["launches"] = run["attention"]
-    log(f"main path: median step {run['step_s']:.4f} s, peak {run['peak_gb']:.2f} GB, "
+    log(f"trunk path: median step {run['step_s']:.4f} s, peak {run['peak_gb']:.2f} GB, "
         f"{run['n_params']} params on {name_and_limit}")
-    print(json.dumps({"kernels": [attention]}), flush=True)
+    video = video_path()
+    log(f"video path: {video['batch_s']:.4f} s per window batch of 4 (first excluded), "
+        f"peak {video['peak_gb']:.2f} GB on {name_and_limit}")
+    launches = {"attention": run["attention"], **video["launches"]}
+    for record in kernels:
+        record["launches"] = launches[record["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

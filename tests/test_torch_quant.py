@@ -1,0 +1,191 @@
+"""The port's int8 path (ops/quant.py) against the JAX package's, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both sides.  On CPU
+tensors the port's fused wrappers run their kernels' plain versions; the
+JAX Pallas kernels run in interpret mode, as tests/test_quant.py runs
+them.  The CUDA kernels are held against the plain versions on the card
+by chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from algonauts2025_tpu.ops import quant as jq
+from algonauts2025_tpu_torch.ops import _cuda
+from algonauts2025_tpu_torch.ops import quant as tq
+
+
+def _bf16(rng, shape):
+    """bf16 values as (jax array, torch tensor) holding the same numbers."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    x = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    return jnp.asarray(x).astype(jnp.bfloat16), torch.tensor(x).bfloat16()
+
+
+@pytest.mark.parametrize("shape", [(128, 96), (3, 16, 8), (1408, 640)])
+def test_quantize_weight_bit_exact(rng, shape):
+    w = rng.standard_normal(shape).astype(np.float32)
+    ref_q, ref_s = jq.quantize_weight(w)
+    for got_q, got_s in (tq.quantize_weight(w), tq.quantize_weight(torch.from_numpy(w))):
+        assert got_q.dtype == torch.int8 and got_q.shape == shape
+        np.testing.assert_array_equal(got_q.numpy(), np.asarray(ref_q))
+        np.testing.assert_array_equal(got_s.numpy(), np.asarray(ref_s))
+
+
+def test_quantize_dense_params_and_tree_match_jax(rng):
+    stacked = {"kernel": rng.standard_normal((3, 16, 8)).astype(np.float32),
+               "bias": rng.standard_normal((3, 8)).astype(np.float32)}
+    ref = jq.quantize_dense_params(stacked)
+    got = tq.quantize_dense_params(stacked)
+    assert set(got) == set(ref)
+    for key in ref:
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]))
+    assert got["scale"].shape == (3, 8) and got["a_scale"].shape == (3,)
+    tree = {"attn": {"query": {"kernel": stacked["kernel"][0]}}, "norm": {"scale": np.ones(8)}}
+    qtree = tq.quantize_tree(tree)
+    assert set(qtree["attn"]["query"]) == {"kernel_q", "scale", "a_scale"}
+    assert qtree["norm"] is not tree["norm"] and np.all(qtree["norm"]["scale"] == 1)
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_matmul_matches_jax(rng, static):
+    x = rng.standard_normal((64, 128)).astype(np.float32)
+    w_q, w_s = jq.quantize_weight(rng.standard_normal((128, 96)).astype(np.float32))
+    sx = np.float32(np.abs(x).max() / 127.0) if static else None
+    ref = np.asarray(jq.int8_matmul(jnp.asarray(x), w_q, w_s, x_scale=sx))
+    got = tq.int8_matmul(torch.from_numpy(x), torch.tensor(np.asarray(w_q)),
+                         torch.tensor(np.asarray(w_s)),
+                         x_scale=None if sx is None else torch.tensor(sx))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 256, 128), (130, 384, 640)])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_int8_matmul_fused_plain_equals_pallas(rng, m, k, n, out_dtype):
+    """The plain version equals the Pallas kernel (interpret mode) exactly:
+    same quantization, exact integer sums, the same fp32 epilogue."""
+    xj, xt = _bf16(rng, (m, k))
+    w_q, w_s = jq.quantize_weight(rng.standard_normal((k, n)).astype(np.float32) * 0.05)
+    bias = rng.standard_normal((n,)).astype(np.float32)
+    sx = np.float32(np.abs(np.asarray(xj, np.float32)).max() / 127.0)
+    ref = jq.int8_matmul_fused(xj, w_q, w_s, jnp.float32(sx), bias=jnp.asarray(bias),
+                               out_dtype=getattr(jnp, out_dtype), interpret=True)
+    got = tq.int8_matmul_fused(xt, torch.tensor(np.asarray(w_q)),
+                               torch.tensor(np.asarray(w_s)), torch.tensor(sx),
+                               bias=torch.from_numpy(bias), out_dtype=getattr(torch, out_dtype))
+    assert got.dtype == getattr(torch, out_dtype)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+
+
+def test_int8_matmul_fused_poisons_uncalibrated_scale(rng):
+    _, xt = _bf16(rng, (32, 256))
+    w_q, w_s = tq.quantize_weight(rng.standard_normal((256, 128)).astype(np.float32))
+    out = tq.int8_matmul_fused(xt, w_q, w_s, torch.tensor(0.0), out_dtype=torch.float32)
+    assert torch.isnan(out).all()
+    out = tq.int8_matmul(xt, w_q, w_s, x_scale=torch.tensor(0.0))
+    assert torch.isnan(out).all()
+
+
+def _mlp_inputs(rng, m, k, f):
+    xj, xt = _bf16(rng, (m, k))
+    w1 = rng.standard_normal((k, f)).astype(np.float32) * 0.05
+    w2 = rng.standard_normal((f, k)).astype(np.float32) * 0.05
+    b1 = rng.standard_normal((f,)).astype(np.float32) * 0.1
+    b2 = rng.standard_normal((k,)).astype(np.float32) * 0.1
+    (w1q, s1), (w2q, s2) = jq.quantize_weight(w1), jq.quantize_weight(w2)
+    sx = np.float32(np.abs(np.asarray(xj, np.float32)).max() / 127.0)
+    jax_args = (xj, w1q, s1, jnp.asarray(b1), w2q, s2, jnp.asarray(b2))
+    torch_args = (xt, *(torch.tensor(np.asarray(a)) for a in (w1q, s1, b1, w2q, s2, b2)))
+    return jax_args, torch_args, sx
+
+
+def test_int8_mlp_fused_plain_matches_pallas(rng):
+    """Within the fused-MLP kernel's tolerance: relative L2 <= 1e-3 and
+    max-abs <= 1e-2 max|ref|.  The gelu's exp differs between libraries
+    in the last bit, which can flip rare int8 roundings of the hidden state."""
+    jax_args, torch_args, sx = _mlp_inputs(rng, 96, 256, 512)
+    sh = np.float32(0.02)
+    ref = np.asarray(jq.int8_mlp_fused(*jax_args, jnp.float32(sx), jnp.float32(sh), bm=128,
+                                       fchunk=256, out_dtype=jnp.float32, interpret=True))
+    got = tq.int8_mlp_fused(*torch_args, torch.tensor(sx), torch.tensor(sh),
+                            out_dtype=torch.float32).numpy()
+    rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+    assert rel <= 1e-3, rel
+    assert np.abs(got - ref).max() <= 1e-2 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("bad", ["x", "h"])
+def test_int8_mlp_fused_couples_poisoning(rng, bad):
+    _, torch_args, sx = _mlp_inputs(rng, 32, 256, 128)
+    scales = {"x": torch.tensor(sx), "h": torch.tensor(0.02)}
+    scales[bad] = torch.tensor(0.0)
+    out = tq.int8_mlp_fused(*torch_args, scales["x"], scales["h"], out_dtype=torch.float32)
+    assert torch.isnan(out).all()
+
+
+def test_gelu_erf_approx_matches_jax():
+    x = np.linspace(-8, 8, 4097, dtype=np.float32)
+    ref = np.asarray(jq._gelu_erf_approx(jnp.asarray(x)))
+    got = tq.gelu_erf_approx(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+    exact = torch.nn.functional.gelu(torch.from_numpy(x)).numpy()
+    assert np.abs(got - exact).max() < 2e-6
+
+
+def test_quant_dense_apply_matches_jax(rng):
+    w = rng.standard_normal((16, 8)).astype(np.float32)
+    b = rng.standard_normal((8,)).astype(np.float32)
+    x = rng.standard_normal((4, 16)).astype(np.float32)
+    jp, tp_ = jq.quantize_dense_params({"kernel": w, "bias": b}), tq.quantize_dense_params(
+        {"kernel": w, "bias": b})
+    a_scale = np.float32(np.abs(x).max() / 127.0)
+    ref = jq.QuantDense.apply({**jp, "a_scale": jnp.float32(a_scale)}, jnp.asarray(x),
+                              out_dtype=jnp.float32)
+    got = tq.QuantDense.apply({**tp_, "a_scale": torch.tensor(a_scale)}, torch.from_numpy(x),
+                              out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    # the uncalibrated sentinel poisons; a dict without a_scale quantizes dynamically
+    assert torch.isnan(tq.QuantDense.apply(tp_, torch.from_numpy(x))).all()
+    dyn = {k: v for k, v in tp_.items() if k != "a_scale"}
+    assert torch.isfinite(tq.QuantDense.apply(dyn, torch.from_numpy(x))).all()
+
+
+def test_calibrate_quant_scales_matches_jax():
+    """One observed forward gives the same a_scale per dense and layer."""
+    from algonauts2025_tpu.models.backbones.vjepa2 import VJEPA2Backbone, VJEPA2Config
+    from algonauts2025_tpu_torch.models import vjepa2_params_to_torch
+    from algonauts2025_tpu_torch.models.backbones import vjepa2 as tv
+
+    kw = dict(crop_size=32, patch_size=16, tubelet_size=2, frames_per_clip=4, hidden_size=64,
+              num_layers=2, num_heads=4, mlp_ratio=2.0, quantize=True)
+    model = VJEPA2Backbone(VJEPA2Config(dtype=jnp.float32, **kw), token_pool=True)
+    pixels = np.random.default_rng(1).uniform(size=(2, 4, 32, 32, 3)).astype(np.float32)
+    params = model.init(jax.random.PRNGKey(0), jnp.asarray(pixels))["params"]
+    ref = jq.calibrate_quant_scales(model.apply, params, jnp.asarray(pixels), margin=1.5)
+
+    port = tv.VJEPA2Backbone(tv.VJEPA2Config(dtype=torch.float32, **kw), token_pool=True)
+    port.load_state_dict(vjepa2_params_to_torch(params))
+    tq.calibrate_quant_scales(port, torch.from_numpy(pixels), margin=1.5)
+    want = {k: v for k, v in vjepa2_params_to_torch(ref).items() if k.endswith("a_scale")}
+    got = {k: v for k, v in port.state_dict().items() if k.endswith("a_scale")}
+    assert set(got) == set(want) and len(got) == 12
+    for key in want:
+        assert float(got[key]) > 0
+        # the same activations up to fp32 summation order
+        np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), rtol=1e-5, err_msg=key)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_for_the_kernel(rng):
+    """The CUDA path of each wrapper checks its inputs before any launch: a
+    CPU tensor never reaches the kernel (it runs the plain version instead)."""
+    x = torch.zeros((4, 128))
+    w_q, w_s = tq.quantize_weight(rng.standard_normal((128, 128)).astype(np.float32))
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        _cuda.check_cuda("w8a8", contiguous=True, x=x)
+    before = dict(tq.launch_counts)
+    tq.int8_matmul_fused(x, w_q, w_s, 1.0)
+    assert tq.launch_counts == before
