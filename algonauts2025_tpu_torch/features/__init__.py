@@ -1,5 +1,12 @@
 """Frozen-feature extraction of the port (device side)."""
 
+from .text import (
+    HashTokenizer,
+    TinyTextBackbone,
+    TorchTextBackbone,
+    encode_word_stream,
+    load_text_backbone,
+)
 from .video import (
     TinyVideoBackbone,
     TorchVideoBackbone,
@@ -9,6 +16,11 @@ from .video import (
 )
 
 __all__ = [
+    "HashTokenizer",
+    "TinyTextBackbone",
+    "TorchTextBackbone",
+    "encode_word_stream",
+    "load_text_backbone",
     "TinyVideoBackbone",
     "TorchVideoBackbone",
     "VideoBackbone",

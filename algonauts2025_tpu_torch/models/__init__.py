@@ -1,7 +1,7 @@
 """Models of the port: the FmriEncoder trunk, its pieces and the frozen backbones."""
 
 from .common import SubjectLayers
-from .convert import flax_params_to_torch, vjepa2_params_to_torch
+from .convert import flax_params_to_torch, llama_params_to_torch, vjepa2_params_to_torch
 from .fmri_encoder import FmriEncoder, FmriEncoderConfig
 from .transformer import ScaleNorm, TransformerEncoder, TransformerEncoderConfig
 
@@ -13,5 +13,6 @@ __all__ = [
     "TransformerEncoder",
     "TransformerEncoderConfig",
     "flax_params_to_torch",
+    "llama_params_to_torch",
     "vjepa2_params_to_torch",
 ]

@@ -6,7 +6,8 @@ The JAX trunk scans one block over depth, so its block params are stacked
 Linear ``(out, in)`` weights.  Every leaf must map to a known name: an
 unmatched leaf raises, and loading the result with ``strict=True`` catches
 parameters the tree lacks.  ``vjepa2_params_to_torch`` does the same for
-the V-JEPA2 video backbone, whose scanned layers sit under ``layers/``.
+the V-JEPA2 video backbone, whose scanned layers sit under ``layers/``, and
+``llama_params_to_torch`` for the Llama text backbone, likewise.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import typing as tp
 import numpy as np
 import torch
 
-__all__ = ["flax_params_to_torch", "vjepa2_params_to_torch"]
+__all__ = ["flax_params_to_torch", "vjepa2_params_to_torch", "llama_params_to_torch"]
 
 #: flax module names whose torch counterpart has the same name
 _SAME = {
@@ -129,6 +130,46 @@ def vjepa2_params_to_torch(params: tp.Mapping[str, tp.Any]) -> dict[str, torch.T
         for name, array in converted:
             dtype = np.int8 if array.dtype == np.int8 else np.float32
             out[name] = torch.tensor(np.asarray(array, dtype=dtype))
+    if unmatched:
+        raise KeyError(f"flax leaves with no torch counterpart: {unmatched}")
+    return out
+
+
+_LLAMA_NORMS = {"input_norm", "post_norm", "final_norm"}
+_LLAMA_DENSES = {"q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"}
+
+
+def _llama_leaf(path: tuple[str, ...], value: np.ndarray) -> tuple[str, np.ndarray]:
+    *modules, leaf = path
+    parent = modules[-1] if modules else None
+    if parent == "embed_tokens" and leaf == "embedding":
+        return "embed_tokens.weight", value
+    if parent in _LLAMA_NORMS and leaf == "weight":
+        return ".".join(modules + ["weight"]), value
+    if parent in _LLAMA_DENSES and leaf == "kernel":
+        return ".".join(modules + ["weight"]), np.swapaxes(value, -1, -2)
+    raise KeyError(leaf)
+
+
+def llama_params_to_torch(params: tp.Mapping[str, tp.Any]) -> dict[str, torch.Tensor]:
+    """The JAX LlamaBackbone's ``params`` -> the port's LlamaBackbone state_dict.
+
+    ``layers/...`` leaves hold (num_layers, ...) stacks from ``nn.scan`` and
+    become ``layers.<i>....``; Dense kernels (in, out) become Linear weights
+    (out, in).  Every leaf becomes float32 (exact for bf16 and fp32 leaves)."""
+    out: dict[str, torch.Tensor] = {}
+    unmatched = []
+    for path, value in _flatten(params):
+        items = [(path, value)]
+        if path[0] == "layers":
+            items = [(("layers", str(i)) + path[1:], value[i]) for i in range(value.shape[0])]
+        try:
+            converted = [_llama_leaf(p, v) for p, v in items]
+        except KeyError:
+            unmatched.append("/".join(path))
+            continue
+        for name, array in converted:
+            out[name] = torch.tensor(np.asarray(array, dtype=np.float32))
     if unmatched:
         raise KeyError(f"flax leaves with no torch counterpart: {unmatched}")
     return out

@@ -21,8 +21,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "DTYPE_CODES", "build", "build_all", "load", "function",
-           "check_cuda", "build_logs"]
+__all__ = ["CSRC", "BUILD_DIR", "DTYPE_CODES", "build", "build_all", "nvcc_command", "load",
+           "function", "check_cuda", "build_logs"]
 
 #: the dtype argument of every kernel's C interface
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,6 +56,15 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def nvcc_command(source: Path, library: Path, nvcc: str | None = None) -> list[str]:
+    """The nvcc command that builds ``source`` into the shared ``library``
+    for sm_90a, with ptxas's register and shared-memory report."""
+    return [
+        nvcc or _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(library), str(source),
+    ]
+
+
 def build_all(names: list[str] | None = None) -> dict[str, Path]:
     """Compile the named sources (default: every ``csrc/*.cu``), one nvcc
     process per source, all started together.  Returns name -> library."""
@@ -70,13 +79,9 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     procs = {}
     for name, lib in todo.items():
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [
-            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-            "-o", str(tmp), str(CSRC / f"{name}.cu"),
-        ]
         procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            nvcc_command(CSRC / f"{name}.cu", tmp, nvcc),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     failed = []
     for name, (tmp, proc) in procs.items():

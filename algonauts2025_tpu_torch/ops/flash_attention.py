@@ -1,18 +1,26 @@
-"""Long-sequence attention of the video backbone: a CUDA kernel + its plain version.
+"""Flash attention of the video and text backbones: CUDA kernels + their plain versions.
 
-The port of the dispatch of algonauts2025_tpu/ops/flash_attention.py for
-the case the video backbone takes: non-causal, no key lengths, a head dim
-that is not a multiple of 128 (ViT-G: 8192 tokens, 22 heads of 64).  The
-JAX package runs it as ``_bounded_kernel``; here ``csrc/flash_attention.cu``
-computes the same function: the softmax scale folded into q and rounded to
-q's dtype, p rounded to v's dtype before the P.V product, the row sum over
-that rounded p.  It shifts the scores by their running maximum, so unlike
-the TPU kernel's a-priori shift it cannot overflow when the scores of a
-row spread widely.
+The port of algonauts2025_tpu/ops/flash_attention.py's dispatch, both
+routes in one source, ``csrc/flash_attention.cu``:
 
-The causal / key-length case (``_flash_kernel``, the text slice) and the
-off-dispatch ``_fast_flash`` and ``flash_attention_packed`` are not
-ported yet (ROADMAP queue 2).
+- non-causal, no key lengths, a head dim that is not a multiple of 128
+  (ViT-G: 8192 tokens, 22 heads of 64): the JAX package's
+  ``_bounded_kernel``; the kernel ``flash_forward`` computes the same
+  function with the softmax scale folded into q and rounded to q's dtype,
+  p rounded to v's dtype before the P.V product and the row sum over that
+  rounded p (``bounded_attention_plain``).  It shifts the scores by their
+  running maximum, so unlike the TPU kernel's a-priori shift it cannot
+  overflow when the scores of a row spread widely.
+- every other call (Llama: causal, right-padded key lengths, 24 query heads
+  over 8 kv heads of 128): the JAX package's ``_flash_kernel``; the kernel
+  ``flash_forward_masked`` scales the fp32 scores, sums fp32 p, rounds p
+  to v's dtype for P.V, returns zeros for a row of length 0 and skips the
+  key tiles that hold no kept key (``flash_attention_plain``).
+
+Both kernels take any T (the ragged edge is masked in the kernel), so the
+JAX package's q/kv block sizes have no counterpart here.  The off-dispatch
+``_fast_flash`` and ``flash_attention_packed`` are not ported yet
+(ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -23,16 +31,22 @@ import torch
 
 from . import _cuda
 
-__all__ = ["flash_attention", "bounded_attention_plain", "launch_counts"]
+__all__ = ["flash_attention", "bounded_attention_plain", "flash_attention_plain", "launch_counts"]
 
 #: kernel launches since the last reset, counted where the kernel launches
-launch_counts: dict[str, int] = {"flash_attention": 0}
+launch_counts: dict[str, int] = {"flash_attention": 0, "flash_masked": 0}
 
 _FORWARD = ("flash_attention", "flash_forward", (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.POINTER(ctypes.c_longlong),
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_void_p,
+))
+_MASKED = ("flash_attention", "flash_forward_masked", (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 ))
 _MAX_HEAD_DIM = ("flash_attention", "flash_max_head_dim", ())
 #: query rows per chunk of the plain version: its fp32 scores are then
@@ -57,19 +71,63 @@ def bounded_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     return out
 
 
-def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch ``flash_forward`` of csrc/flash_attention.cu on the current stream.
+def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, KVH, T, d) -> (B, heads, T, d): kv head j serves query heads
+    j*rep .. j*rep + rep - 1 (``jnp.repeat(x, rep, axis=1)``)."""
+    return x if x.shape[1] == heads else x.repeat_interleave(heads // x.shape[1], dim=1)
 
-    q, k and v may be strided views as long as the head dim is contiguous;
-    the output is allocated in (B, T, H, d) order and returned as a
-    (B, H, T, d) view, so the caller's merge of the heads is free."""
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = False,
+    lengths: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(B, H, T, d) masked softmax attention with ``_flash_kernel``'s roundings.
+
+    k and v may have H / rep heads (GQA).  Scores are q.k in fp32 times the
+    scale in fp32; masked scores (``col > row`` if causal, ``col >=
+    lengths[b]`` if lengths) are -1e30; the row sum is over fp32 p and P.V
+    over p rounded to v's dtype; ``acc / max(l, 1e-30)``; a row of length 0
+    is zero.  Computed in chunks of query rows, as the bounded version."""
+    b, h, t, d = q.shape
+    scale = d**-0.5
+    kf, vf = _repeat_kv(k, h).float(), _repeat_kv(v, h).float()
+    cols = torch.arange(t, device=q.device)
+    lens = None if lengths is None else lengths.to(q.device).reshape(b, 1, 1, 1)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for r0 in range(0, t, _PLAIN_ROWS):
+        r1 = min(t, r0 + _PLAIN_ROWS)
+        s = torch.matmul(q[..., r0:r1, :].float(), kf.transpose(-1, -2)) * scale
+        keep = torch.ones((1, 1, r1 - r0, t), dtype=torch.bool, device=q.device)
+        if causal:
+            keep = keep & (cols <= torch.arange(r0, r1, device=q.device)[:, None])
+        if lens is not None:
+            keep = keep & (cols < lens)
+        s = torch.where(keep, s, -1e30)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = torch.matmul(p.to(v.dtype).float(), vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        if lens is not None:
+            o = torch.where(lens > 0, o, 0.0)
+        out[..., r0:r1, :] = o.to(q.dtype)
+    return out
+
+
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, gqa: bool) -> None:
+    """The kernels' common checks: CUDA, fp32/bf16, (B, H, T, d) q with k
+    and v of q's shape (or, with ``gqa``, of H / rep heads), unit stride on
+    the head dim, a head dim the kernel takes."""
     _cuda.check_cuda("flash attention", q=q, k=k, v=v)
+    kv_heads = k.shape[1] if gqa and k.dim() == 4 else q.shape[1]
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype not in _cuda.DTYPE_CODES:
             raise TypeError(f"flash attention kernel takes float32 or bfloat16, {name} is {x.dtype}")
-        if x.dim() != 4 or x.shape != q.shape:
+        want = q.shape if name == "q" else (*q.shape[:1], kv_heads, *q.shape[2:])
+        if x.dim() != 4 or x.shape != want or q.shape[1] % kv_heads:
             raise ValueError(
-                f"flash attention kernel wants q, k, v of one (B, H, T, d) shape, got "
+                f"flash attention kernel wants q of (B, H, T, d) and k, v of "
+                f"{'(B, H / rep, T, d)' if gqa else 'the same shape'}, got "
                 f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
             )
         if x.stride(-1) != 1:
@@ -85,8 +143,25 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tens
         )
     if b * h > 65535:
         raise ValueError(f"flash attention kernel: B*H={b * h} exceeds the grid's 65535")
+
+
+def _output_and_strides(q, k, v):
+    """The output, allocated in (B, T, H, d) order and viewed as (B, H, T, d)
+    (the caller's merge of the heads is free), and the (b, h, t) strides of
+    q, k, v and o for the C interface."""
+    b, h, t, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
+    return out, strides
+
+
+def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Launch ``flash_forward`` of csrc/flash_attention.cu on the current stream.
+
+    q, k and v may be strided views as long as the head dim is contiguous."""
+    _check_qkv(q, k, v, gqa=False)
+    b, h, t, d = q.shape
+    out, strides = _output_and_strides(q, k, v)
     with torch.cuda.device(q.device):
         err = _cuda.function(*_FORWARD)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
@@ -95,6 +170,33 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tens
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err} (shape {tuple(q.shape)})")
     launch_counts["flash_attention"] += 1
+    return out
+
+
+def _flash_masked_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, lengths: torch.Tensor | None
+) -> torch.Tensor:
+    """Launch ``flash_forward_masked`` of csrc/flash_attention.cu on the
+    current stream; k and v may have H / rep heads, all three may be
+    strided views with a contiguous head dim."""
+    _check_qkv(q, k, v, gqa=True)
+    b, h, t, d = q.shape
+    lens = None
+    if lengths is not None:
+        if lengths.shape != (b,):
+            raise ValueError(f"flash attention kernel: lengths of shape {tuple(lengths.shape)}, want ({b},)")
+        lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    out, strides = _output_and_strides(q, k, v)
+    with torch.cuda.device(q.device):
+        err = _cuda.function(*_MASKED)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+            None if lens is None else lens.data_ptr(), b, h, k.shape[1], t, d,
+            _cuda.DTYPE_CODES[q.dtype], int(causal), d**-0.5, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"masked flash attention kernel launch failed: CUDA error {err} "
+                           f"(shape {tuple(q.shape)}, kv heads {k.shape[1]})")
+    launch_counts["flash_masked"] += 1
     return out
 
 
@@ -107,15 +209,17 @@ def flash_attention(
 ) -> torch.Tensor:
     """(B, H, T, d) attention without materialized scores.
 
-    The non-causal, unmasked case with ``d % 128 != 0`` (the JAX package's
-    ``_bounded_kernel`` dispatch): the kernel for CUDA tensors, its plain
-    version for CPU tensors.  The kernel tiles T itself, so the JAX
-    package's q/kv block sizes have no counterpart here."""
-    if causal or lengths is not None or q.shape[-1] % 128 == 0:
-        raise NotImplementedError(
-            "flash_attention with causal=True, key lengths or a head dim that is a multiple "
-            "of 128 runs _flash_kernel, which the text slice ports (ROADMAP queue 2)"
-        )
+    Routes as the JAX package does: non-causal, no ``lengths`` and ``d %
+    128 != 0`` to the bounded kernel; every other call (``causal``
+    restricts to the lower triangle, ``lengths`` (B,) masks right-padded
+    keys per batch row; k and v may have H / rep heads) to the masked
+    kernel.  CUDA tensors launch the kernel, CPU tensors run its plain
+    version."""
+    bounded = not causal and lengths is None and q.shape[-1] % 128
     if q.device.type == "cpu":
-        return bounded_attention_plain(q, k, v)
-    return _flash_cuda(q, k, v)
+        if bounded:
+            return bounded_attention_plain(q, k, v)
+        return flash_attention_plain(q, k, v, causal, lengths)
+    if bounded:
+        return _flash_cuda(q, k, v)
+    return _flash_masked_cuda(q, k, v, causal, lengths)

@@ -14,10 +14,14 @@ Phases (any failure exits non-zero):
    call that computes the same function (a yardstick the port never
    calls): ``scaled_dot_product_attention`` for the attention kernels,
    ``torch._int_mm`` plus the elementwise quant passes for the int8 ones.
+   Two mutants of the masked flash kernel, built from patched copies of
+   its source under ``_build/mutants`` (one ignores the key lengths, one
+   ignores ``causal``), must fail the same check.
 3. A small FmriEncoder trained on the card and on the CPU from the same
    weights must agree step by step; a small static-int8 V-JEPA2 backbone
-   (1024 tokens, so every video kernel dispatches) must give the same
-   features on the card as on the CPU from the same weights.
+   (1024 tokens, so every video kernel dispatches) and a small fp32 Llama
+   (512 tokens, right-padded, so the masked flash kernel dispatches) must
+   give the same features on the card as on the CPU from the same weights.
 4. The trunk's main path at full width: ``BrainTrainer`` on the flagship
    FmriEncoder configured as ``bench.py``'s ``bench_train`` (0.94 B
    params, batch 16 x 298 steps, remat, InfoNCE, bf16-mu Adam, OneCycle),
@@ -31,31 +35,47 @@ Phases (any failure exits non-zero):
    The first batch is encoded again with every kernel of the backbone
    swapped for its plain version on the card, and the token-pooled
    features of the two must agree.
+6. The text path at full Llama-3.2-3B width and depth (28 layers, 3072
+   wide, 24 query heads over 8 kv heads of 128, bf16), seeded weights at
+   the HF init scale, the hash tokenizer: a seeded 1,280-word transcript
+   with rolling contexts capped at 1,024 words through
+   ``encode_word_stream`` (one 1,024-word chain in 16 forwards, then 32
+   padded (8, 1024) batches), then ``aggregate_layers`` down to the
+   trunk's text input.  One chain chunk and one batch are encoded again
+   with the flash kernel swapped for its plain version, and the pooled
+   features of the two must agree; so must the batch's through the same
+   weights in fp32.
 
-Before each main path (phases 4 and 5) every kernel's launch counter is
+Before each main path (phases 4, 5 and 6) every kernel's launch counter is
 zeroed, and it is read just after.  The line before the last is the JSON
 ``kernels`` record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
 import torch
 
 from algonauts2025_tpu_torch.data import SegmentData
+from algonauts2025_tpu_torch.features.text import (
+    CHAIN_CHUNK, HashTokenizer, TorchTextBackbone, _bucket_width, encode_word_stream,
+)
 from algonauts2025_tpu_torch.features.video import (
     TorchVideoBackbone, _calibrated_static_model, encode_window_stream,
 )
 from algonauts2025_tpu_torch.models import FmriEncoderConfig
-from algonauts2025_tpu_torch.models.backbones import vjepa2
+from algonauts2025_tpu_torch.models.backbones import llama, vjepa2
+from algonauts2025_tpu_torch.models.backbones.llama import LLAMA_3P2_3B, LlamaBackbone, LlamaConfig
 from algonauts2025_tpu_torch.models.backbones.vjepa2 import (
     VJEPA2_VITG, VJEPA2Backbone, VJEPA2Config, _QDense,
 )
@@ -118,6 +138,11 @@ def reset_counts() -> None:
             counts[key] = 0
 
 
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launches since the last ``reset_counts``."""
+    return {key: n for counts in COUNTERS for key, n in counts.items()}
+
+
 def bound(flops: float, nbytes: float, peak_ops: float, peaks: dict[str, float]) -> tuple[float, str]:
     """The least time for the work: the larger of operations over the peak
     rate of their type and bytes (each input read once, each output
@@ -144,14 +169,24 @@ def card() -> str:
     return line
 
 
-def build_kernels() -> None:
+def build_kernels() -> dict[str, Path]:
+    """Build every source of csrc and, beside them, the MUTANTS of the flash
+    source (all nvcc processes at once); returns the mutants' libraries."""
     t0 = time.time()
-    libs = _cuda.build_all()
-    log(f"built {sorted(libs)} in {time.time() - t0:.1f} s")
+    builds = start_mutant_builds()
+    try:
+        libs = _cuda.build_all()
+    finally:
+        mutant_logs = {name: (proc.communicate()[0], proc.returncode) for name, (_, proc) in builds.items()}
+    log(f"built {sorted(libs)} and mutants {sorted(builds)} in {time.time() - t0:.1f} s")
     for name, text in _cuda.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  nvcc {name}: {line.strip()}")
+    for name, (text, returncode) in mutant_logs.items():
+        if returncode != 0:
+            raise SystemExit(f"mutant {name} did not build:\n{text}")
+    return {name: library for name, (library, _) in builds.items()}
 
 
 def qkv(shape, dtype, strided: bool, gen: torch.Generator):
@@ -422,6 +457,136 @@ def check_flash(peaks: dict[str, float]) -> dict:
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
 
 
+# one Llama-3.2-3B batch forward's attention: (B, H, T, d) and its kv heads
+LLAMA_ATTN, LLAMA_KV = (8, 24, 1024, 128), 8
+# (shape, kv heads, dtype, causal, key lengths): the main path's, then
+# padded rows (a length 0 among them), fp32, non-causal d = 128, ragged T
+MASKED_CASES = [
+    (LLAMA_ATTN, LLAMA_KV, torch.bfloat16, True, (1024,) * 8),
+    (LLAMA_ATTN, LLAMA_KV, torch.bfloat16, True, (1024, 700, 256, 1, 0, 1024, 512, 999)),
+    ((1, 24, 1024, 128), LLAMA_KV, torch.float32, True, None),
+    ((2, 4, 256, 128), 4, torch.float32, False, (0, 256)),
+    ((2, 4, 1, 64), 2, torch.float32, True, (1, 0)),
+    ((2, 4, 37, 64), 2, torch.bfloat16, True, (37, 20)),
+    ((2, 4, 300, 128), 2, torch.float32, True, (300, 129)),
+]
+# limits of the masked kernel against its plain version, set from the
+# first readings on an H100 (PERF.md): max-abs within MASKED_TOL and
+# 1e-2 max|ref|; relative L2 within MASKED_REL, ~4x the largest reading
+# (bf16 1.3e-3 at the main case, fp32 1.7e-7).  bf16 max-abs stays at the
+# port's 3e-2: one output of magnitude 2-4 whose fp32 sum lands on the other
+# side of a bf16 rounding boundary already differs by 1.6e-2
+MASKED_TOL = {torch.float32: 2e-6, torch.bfloat16: 3e-2}
+MASKED_REL = {torch.float32: 1e-6, torch.bfloat16: 5e-3}
+# patched copies of csrc/flash_attention.cu whose masked kernel must fail
+# check_flash_masked: (the line of flash_forward_masked, its replacement)
+MUTANTS = {
+    "ignores_lengths": ("p.lengths = lengths;", "p.lengths = nullptr;"),
+    "ignores_causal": ("p.causal = causal != 0;", "p.causal = 0;"),
+}
+
+
+def masked_qkv(shape, kv_heads, dtype, gen):
+    """q (B, H, T, d) and k, v (B, kv_heads, T, d) as the Llama backbone
+    hands them over: head-split views of (B, T, heads, d) projections."""
+    b, h, t, d = shape
+    return [torch.randn((b, t, n, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+            for n in (h, kv_heads, kv_heads)]
+
+
+def flash_masked_cases(label: str) -> tuple[bool, float]:
+    """Run MASKED_CASES through ``flash_attention`` against
+    ``flash_attention_plain``: max-abs within ``MASKED_TOL`` and 1e-2
+    max|ref|, relative L2 within ``MASKED_REL``, rows of length 0 exactly
+    zero.  Returns whether every case passed, and the main case's
+    max-abs error."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    all_ok, main_err = True, float("nan")
+    for shape, kv_heads, dtype, causal, lengths in MASKED_CASES:
+        q, k, v = masked_qkv(shape, kv_heads, dtype, gen)
+        lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        out = flash.flash_attention(q, k, v, causal=causal, lengths=lens)
+        torch.cuda.synchronize()
+        ref = flash.flash_attention_plain(q, k, v, causal, lens)
+        o, r = out.float(), ref.float()
+        err = (o - r).abs().max().item()
+        rel = (torch.linalg.vector_norm(o - r) / torch.linalg.vector_norm(r)).item()
+        limit = min(MASKED_TOL[dtype], 1e-2 * r.abs().max().item())
+        zero_rows = [i for i, n in enumerate(lengths or ()) if n == 0]
+        zeros = all(torch.equal(o[i], torch.zeros_like(o[i])) for i in zero_rows)
+        ok = (out.dtype == dtype and out.shape == q.shape and torch.isfinite(out).all().item()
+              and err <= limit and rel <= MASKED_REL[dtype] and zeros)
+        log(f"{label} {shape} kv {kv_heads} {str(dtype)[6:]}{' causal' if causal else ''} "
+            f"lengths {lengths}: max_abs_err {err:.3e} (tol {limit:.3e}), rel L2 {rel:.3e} "
+            f"(tol {MASKED_REL[dtype]:.0e}), max|ref| {r.abs().max().item():.3e}, "
+            f"zero rows exact {zeros} {'ok' if ok else 'FAIL'}")
+        all_ok = all_ok and ok
+        if shape == LLAMA_ATTN and lengths == (1024,) * 8:
+            main_err = err
+    return all_ok, main_err
+
+
+def start_mutant_builds() -> dict[str, tuple[Path, subprocess.Popen]]:
+    """Start one nvcc per MUTANTS entry on a patched copy of the flash
+    source under _build/mutants (the checkout's sources stay as they are)."""
+    source = (_cuda.CSRC / "flash_attention.cu").read_text()
+    builds = {}
+    for name, (line, patched) in MUTANTS.items():
+        if source.count(line) != 1:
+            raise SystemExit(f"mutant {name}: {line!r} is not one line of flash_attention.cu")
+        folder = _cuda.BUILD_DIR / "mutants" / name
+        folder.mkdir(parents=True, exist_ok=True)
+        (folder / "flash_attention.cu").write_text(source.replace(line, patched))
+        library = folder / "libflash_attention.so"
+        builds[name] = (library, subprocess.Popen(
+            _cuda.nvcc_command(folder / "flash_attention.cu", library),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return builds
+
+
+def mutant_function(library: ctypes.CDLL):
+    """A stand-in for ``_cuda.function`` that types the symbols of ``library``."""
+    def function(name, symbol, argtypes, restype=ctypes.c_int):
+        fn = getattr(library, symbol)
+        fn.argtypes, fn.restype = list(argtypes), restype
+        return fn
+    return function
+
+
+def check_flash_masked(peaks: dict[str, float], mutants: dict[str, Path]) -> dict:
+    """The masked flash kernel through the Llama backbone's wrapper against
+    its plain version; then each mutant must fail the same cases."""
+    ok, main_err = flash_masked_cases("flash_masked")
+    if not ok:
+        raise SystemExit("the masked flash attention kernel disagrees with its plain version")
+    for name, library in mutants.items():
+        with mock.patch.object(flash._cuda, "function", mutant_function(ctypes.CDLL(str(library)))):
+            caught = not flash_masked_cases(f"mutant {name}")[0]
+        log(f"mutant {name}: {'fails the check, ok' if caught else 'PASSES the check'}")
+        if not caught:
+            raise SystemExit(f"check_flash_masked does not catch a kernel that {name.replace('_', ' ')}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    b, h, t, d = LLAMA_ATTN
+    q, k, v = masked_qkv(LLAMA_ATTN, LLAMA_KV, torch.bfloat16, gen)
+    lens = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    kernel_ms = time_ms(lambda: flash.flash_attention(q, k, v, causal=True, lengths=lens), iters=10)
+    plain_ms = time_ms(lambda: flash.flash_attention_plain(q, k, v, True, lens), iters=3, warmup=1)
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), iters=10)
+    # the kept (query, key) pairs of this call: causal rows keep row + 1 keys
+    pairs = sum(min(r + 1, n) for n in lens.tolist() for r in range(t))
+    flops = 4 * d * h * pairs
+    nbytes = 2 * (2 * b * h * t * d + 2 * b * LLAMA_KV * t * d)
+    bound_ms, bound_by = bound(flops, nbytes, peaks["bfloat16"], peaks)
+    log(f"flash_masked {LLAMA_ATTN} kv {LLAMA_KV} bf16 causal: kernel {kernel_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, {flops / kernel_ms / 1e9:.2f} TFLOP/s)")
+    return kernel_record("flash_masked", "flash_attention.cu",
+                         "algonauts2025_tpu/ops/flash_attention.py:26 (_flash_kernel)",
+                         main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
+
+
 @torch.no_grad()
 def quantized_backbone(cfg: VJEPA2Config, gen: torch.Generator, device="cuda") -> VJEPA2Backbone:
     """A dynamic-scale int8 backbone from seeded float weights at a dense
@@ -459,7 +624,7 @@ def check_small_backbone_against_cpu() -> None:
     windows = np.random.default_rng(SEED + 5).integers(0, 256, (2, 32, 144, 256, 3), dtype=np.uint8)
     reset_counts()
     a = gpu.encode_windows(windows).astype(np.float64)
-    counts = {**flash.launch_counts, **quant.launch_counts}
+    counts = {key: launch_counts()[key] for key in ("flash_attention", "w8a8", "int8_mlp")}
     b = cpu.encode_windows(windows).astype(np.float64)
     cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
     rel = np.abs(a - b).max() / np.abs(b).max()
@@ -467,6 +632,36 @@ def check_small_backbone_against_cpu() -> None:
         f"{cos.min():.6f} (tol 0.999), worst |diff| / max|ref| {rel:.3e}, launches {counts}")
     if not cos.min() >= 0.999 or min(counts.values()) == 0:
         raise SystemExit("the small int8 backbone on the card disagrees with the CPU")
+
+
+def check_small_llama_against_cpu() -> None:
+    """A small fp32 Llama (2 layers, 256 wide, 2 query heads over 1 kv head
+    of 128) at T = 512 with right-padded lengths (512, 300): the masked
+    flash kernel dispatches on the card, the masked plain attention runs on
+    the CPU, and the hidden states on valid positions agree to 1e-4."""
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=256, intermediate_size=512, num_layers=2,
+                      num_heads=2, num_kv_heads=1, head_dim=128, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    model = LlamaBackbone(cfg, device="cuda").init_random(gen)
+    cpu_model = LlamaBackbone(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    t, lengths = 512, (512, 300)
+    ids = torch.randint(0, cfg.vocab_size, (len(lengths), t), generator=gen, device="cuda")
+    mask = (torch.arange(t, device="cuda")[None] < torch.tensor(lengths, device="cuda")[:, None]).int()
+    reset_counts()
+    with torch.no_grad():
+        a = model(ids, mask)
+        torch.cuda.synchronize()
+        launched = launch_counts()["flash_masked"]
+        b = cpu_model(ids.cpu(), mask.cpu())
+    a = a.cpu()
+    err = max((a[:, i, :n] - b[:, i, :n]).abs().max().item() for i, n in enumerate(lengths))
+    scale = max(b[:, i, :n].abs().max().item() for i, n in enumerate(lengths))
+    log(f"small fp32 Llama (2 layers, 256 wide, T {t}, lengths {lengths}), card vs CPU: "
+        f"max_abs_err {err:.3e} on valid positions (tol 1e-4, max|ref| {scale:.3e}), "
+        f"flash_masked launches {launched} (expected {cfg.num_layers})")
+    if not err <= 1e-4 or launched != cfg.num_layers:
+        raise SystemExit("the small Llama on the card disagrees with the CPU")
 
 
 def plain_features(encode, windows: np.ndarray) -> np.ndarray:
@@ -494,7 +689,7 @@ def video_path(n_windows: int = 10, window_batch: int = 4) -> dict:
     torch.cuda.synchronize()
     calib = {**flash.launch_counts, **quant.launch_counts}
     log(f"ViT-G built and calibrated in {time.perf_counter() - t0:.1f} s; calibration launches {calib}")
-    if calib != {"flash_attention": cfg.num_layers, "w8a8": 0, "int8_mlp": 0}:
+    if calib != {"flash_attention": cfg.num_layers, "flash_masked": 0, "w8a8": 0, "int8_mlp": 0}:
         raise SystemExit("calibration did not launch the kernels as expected")
     backbone = TorchVideoBackbone(model, n_frames=cfg.frames_per_clip, crop_size=cfg.crop_size)
     rng = np.random.default_rng(SEED + 6)
@@ -518,7 +713,7 @@ def video_path(n_windows: int = 10, window_batch: int = 4) -> dict:
     launches = {**flash.launch_counts, **quant.launch_counts}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_batches = -(-n_windows // window_batch)
-    expected = {"flash_attention": cfg.num_layers * n_batches,
+    expected = {"flash_attention": cfg.num_layers * n_batches, "flash_masked": 0,
                 "w8a8": 4 * cfg.num_layers * n_batches, "int8_mlp": cfg.num_layers * n_batches}
     trunk_input = aggregate_layers(feats, [0.5, 0.75, 1.0])
     log(f"video features {feats.shape}, trunk input {trunk_input.shape}; batch seconds {batch_s}")
@@ -546,6 +741,153 @@ def video_path(n_windows: int = 10, window_batch: int = 4) -> dict:
     if not (cos.min() >= 0.9999 and rel.max() <= 1e-2):
         raise SystemExit("the video features through the kernels disagree with the plain versions")
     return {"launches": launches, "batch_s": statistics.mean(batch_s[1:]), "peak_gb": peak_gb}
+
+
+def transcript(n_words: int, context_cap: int, seed: int) -> list[tuple[str, str]]:
+    """A seeded transcript of lowercase words, each with its rolling left
+    context (itself included) capped at ``context_cap`` words, as
+    AddContextToWords builds them."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = ["".join(rng.choice(letters, rng.integers(2, 10))) for _ in range(5000)]
+    text = [vocab[i] for i in rng.integers(0, len(vocab), n_words)]
+    return [(w, " ".join(text[max(0, i + 1 - context_cap) : i + 1])) for i, w in enumerate(text)]
+
+
+def pooled_agreement(got: np.ndarray, ref: np.ndarray) -> tuple[float, np.ndarray]:
+    """The min cosine of the (word, layer) feature vectors, and their max
+    relative L2 layer by layer."""
+    got, ref = got.astype(np.float64), ref.astype(np.float64)
+    norms = np.linalg.norm(ref, axis=-1)
+    cos = (got * ref).sum(-1) / (np.linalg.norm(got, axis=-1) * norms)
+    return cos.min(), (np.linalg.norm(got - ref, axis=-1) / norms).max(axis=0)
+
+
+def compare_pooled(got: np.ndarray, ref: np.ndarray, what: str, dtype: torch.dtype) -> bool:
+    """Whether the features through the kernel keep TEXT_LIMITS[dtype]
+    against those through the plain attention."""
+    cos, rel = pooled_agreement(got, ref)
+    cos_tol, rel_tol = TEXT_LIMITS[dtype]
+    log(f"text features {str(dtype)[6:]}, kernel vs plain on the card ({what}): min cosine "
+        f"{cos:.7f} (tol {cos_tol}), max rel L2 {rel.max():.3e} (tol {rel_tol:.0e}) at layer "
+        f"{int(rel.argmax())}; by layer {' '.join(f'{r:.1e}' for r in rel)}")
+    return cos >= cos_tol and rel.max() <= rel_tol
+
+
+# limits of the pooled text features through the kernel against the plain
+# attention, on the same model and inputs, set from the first readings on
+# an H100 (PERF.md).  bf16: min cosine 0.99899, max rel L2 4.5e-2 at
+# layer 28; the difference is one bf16 rounding of p under another shift,
+# and it grows with depth like the difference between two plain versions
+# that differ only in rounding p.  fp32: the order of the sums alone
+TEXT_LIMITS = {torch.bfloat16: (0.998, 8e-2), torch.float32: (0.9999999, 1e-4)}
+
+
+@torch.no_grad()
+def text_path(n_words: int = 1280, batch_size: int = 8, context_cap: int = 1024) -> dict:
+    """The text path at full Llama-3.2-3B width and depth through the kernel."""
+    cfg = LLAMA_3P2_3B
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    t0 = time.perf_counter()
+    model = LlamaBackbone(cfg, device="cuda").init_random(gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    backbone = TorchTextBackbone(model, HashTokenizer(cfg.vocab_size), pad_id=0)
+    words = transcript(n_words, context_cap, SEED + 11)
+    torch.cuda.synchronize()
+    log(f"Llama-3.2-3B built in {time.perf_counter() - t0:.1f} s: {n_params} params")
+
+    # the forwards as reckoned from the bucket tables: the first context_cap
+    # words are one chain in CHAIN_CHUNK-word chunks, the sliding rest are
+    # padded batches; each forward of width >= 256 (a multiple of 128)
+    # launches the kernel once per layer
+    buckets = TorchTextBackbone.BUCKETS
+    widths = [(1, _bucket_width(min(k + CHAIN_CHUNK, context_cap), buckets))
+              for k in range(0, context_cap, CHAIN_CHUNK)]
+    widths += [(batch_size, _bucket_width(context_cap, buckets))] * ((n_words - context_cap) // batch_size)
+    expected = cfg.num_layers * sum(w >= 256 and w % 128 == 0 for _, w in widths)
+
+    forward, forwards = backbone._forward, []
+
+    def timed_forward(ids, mask):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = forward(ids, mask)
+        end.record()
+        forwards.append((ids.shape, start, end))
+        return out
+
+    backbone._forward = timed_forward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    feats = np.stack(list(encode_word_stream(backbone, words, batch_size, max_context_tokens=1024)))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    backbone._forward = forward
+    shapes = [tuple(shape) for shape, _, _ in forwards]
+    batch_ms = [s.elapsed_time(e) for shape, s, e in forwards if tuple(shape) == (batch_size, 1024)]
+    trunk_input = aggregate_layers(feats.transpose(1, 2, 0), [0.5, 0.75, 1.0])
+    log(f"text features {feats.shape}, trunk input {trunk_input.shape}; forwards {shapes}")
+    log(f"text path: {wall_s:.2f} s for {n_words} words ({wall_s / n_words * 1e3:.3f} ms a word); "
+        f"(8, 1024) batch forwards {[round(ms, 2) for ms in batch_ms]} ms; peak {peak_gb:.2f} GB")
+    log(f"text launches {launches} (expected flash_masked {expected})")
+    want = (n_words, cfg.num_layers + 1, cfg.hidden_size)
+    if feats.shape != want or not np.isfinite(feats).all():
+        raise SystemExit(f"text features: shape {feats.shape} (want {want}) or non-finite values")
+    if trunk_input.shape != (2, cfg.hidden_size, n_words) or not np.isfinite(trunk_input).all():
+        raise SystemExit(f"aggregate_layers gave {trunk_input.shape} or non-finite values")
+    if shapes != widths:
+        raise SystemExit(f"the text path ran forwards {shapes}, reckoned {widths}")
+    if launches != {**{key: 0 for key in launches}, "flash_masked": expected}:
+        raise SystemExit("the text path did not launch the kernels as expected")
+
+    # the last chain chunk (width 1024) and the first padded batch again
+    # with the plain attention: the same model, tokens and spans
+    chunk = words[context_cap - CHAIN_CHUNK : context_cap]
+    batch = words[context_cap : context_cap + batch_size]
+    reset_counts()
+    with mock.patch.object(llama, "flash_attention", flash.flash_attention_plain):
+        toks = backbone.chain_tokenize([c for _, c in chunk])
+        chain_ref = np.asarray(backbone.pooled_states_chain_async(toks, [len(w) for w, _ in chunk]))
+        ids, mask = backbone.encode_pretokenized(backbone.chain_tokenize([c for _, c in batch]), 1024)
+        spans = np.array([max(1, min(len(w), int(n))) for (w, _), n in zip(batch, mask.sum(-1))], np.int32)
+        batch_ref = backbone.pooled_states(ids, mask, spans)
+    # a yardstick for the bf16 limits: two plain versions that differ only
+    # in rounding p to bf16 before P.V (v widened to fp32 keeps p in fp32)
+    with mock.patch.object(llama, "flash_attention", lambda q, k, v, causal, lengths:
+                           flash.flash_attention_plain(q, k, v.float(), causal, lengths)):
+        unrounded = backbone.pooled_states(ids, mask, spans)
+    rel = pooled_agreement(unrounded.transpose(1, 0, 2), batch_ref.transpose(1, 0, 2))[1]
+    log(f"text features bfloat16, plain vs plain with p unrounded (first (8, 1024) batch): "
+        f"max rel L2 by layer {' '.join(f'{r:.1e}' for r in rel)}")
+    if any(launch_counts().values()) or ids.shape != (batch_size, 1024):
+        raise SystemExit(f"the plain reference launched {launch_counts()} or ran at {ids.shape}")
+    agree = [compare_pooled(feats[context_cap - CHAIN_CHUNK : context_cap],
+                            chain_ref[:, :CHAIN_CHUNK].transpose(1, 0, 2), "last chain chunk, width 1024",
+                            cfg.dtype),
+             compare_pooled(feats[context_cap : context_cap + batch_size], batch_ref.transpose(1, 0, 2),
+                            "first (8, 1024) batch", cfg.dtype)]
+
+    # the same batch through the model in fp32 (the bf16 weights, widened
+    # exactly), where kernel and plain attention differ in the order of sums
+    model32 = LlamaBackbone(dataclasses.replace(cfg, dtype=torch.float32), device="cuda")
+    model32.load_state_dict(model.state_dict())
+    backbone32 = TorchTextBackbone(model32, HashTokenizer(cfg.vocab_size), pad_id=0)
+    got32 = backbone32.pooled_states(ids, mask, spans)
+    reset_counts()
+    with mock.patch.object(llama, "flash_attention", flash.flash_attention_plain):
+        ref32 = backbone32.pooled_states(ids, mask, spans)
+    if any(launch_counts().values()):
+        raise SystemExit(f"the plain reference launched {launch_counts()}")
+    agree.append(compare_pooled(got32.transpose(1, 0, 2), ref32.transpose(1, 0, 2),
+                                "first (8, 1024) batch", torch.float32))
+    if not all(agree):
+        raise SystemExit("the text features through the kernel disagree with the plain attention")
+    return {"launches": launches, "batch_ms": statistics.mean(batch_ms[1:]),
+            "word_ms": wall_s / n_words * 1e3, "peak_gb": peak_gb}
 
 
 FLAGSHIP_DIMS = {"text": (2, 3072), "audio": (2, 1024), "video": (2, 1408)}
@@ -664,17 +1006,23 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     peaks = peaks_for(kind)
     torch.manual_seed(SEED)
-    build_kernels()
-    kernels = [check_attention(peaks), check_flash(peaks), check_w8a8(peaks), check_int8_mlp(peaks)]
+    mutants = build_kernels()
+    kernels = [check_attention(peaks), check_flash(peaks), check_flash_masked(peaks, mutants),
+               check_w8a8(peaks), check_int8_mlp(peaks)]
     check_small_against_cpu()
     check_small_backbone_against_cpu()
+    check_small_llama_against_cpu()
     run = main_path()
     log(f"trunk path: median step {run['step_s']:.4f} s, peak {run['peak_gb']:.2f} GB, "
         f"{run['n_params']} params on {name_and_limit}")
     video = video_path()
     log(f"video path: {video['batch_s']:.4f} s per window batch of 4 (first excluded), "
         f"peak {video['peak_gb']:.2f} GB on {name_and_limit}")
-    launches = {"attention": run["attention"], **video["launches"]}
+    text = text_path()
+    log(f"text path: {text['batch_ms']:.2f} ms per (8, 1024) batch forward (first excluded), "
+        f"{text['word_ms']:.3f} ms per word, peak {text['peak_gb']:.2f} GB on {name_and_limit}")
+    launches = {"attention": run["attention"], **video["launches"],
+                "flash_masked": text["launches"]["flash_masked"]}
     for record in kernels:
         record["launches"] = launches[record["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
