@@ -1,5 +1,5 @@
-// Flash attention for the V-JEPA2 and Llama backbones, sm_90a: one tile loop,
-// two numerics, two C entry points.
+// Flash attention for the V-JEPA2 and Llama backbones and the attention
+// bench, sm_90a: one tile loop, two numerics, four C entry points.
 //
 // flash_forward (the video backbone's long non-causal attention).
 // Replaces: algonauts2025_tpu/ops/flash_attention.py::_bounded_kernel (the
@@ -35,6 +35,26 @@
 // peak; this version runs fp32 FMAs on the CUDA cores.  The query tiles of
 // a head are launched heaviest first (the last causal tile streams every
 // key), so the longest blocks do not start last.
+//
+// flash_forward_fast (the attention bench's online-max baseline).
+// Replaces: algonauts2025_tpu/ops/flash_attention.py::_fast_kernel (launched by
+// _fast_flash, called only by scripts/bench_attn.py): flash_forward's
+// numerics (scale folded into a rounded q, running max, the row sum over p
+// rounded to v's dtype, which the TPU kernel takes through a ones-lane in
+// v's padding), with an optional rounding of every score to bf16 before the
+// running max and exp.  The same kernel as flash_forward under a third
+// template flag; at the bench's (4, 22, 8192, 64) bf16 the bound is
+// flash_forward's, 1.53 ms of operations.
+//
+// flash_forward_packed (the attention bench's head-pair packed variant).
+// Replaces: algonauts2025_tpu/ops/flash_attention.py::_flash_kernel_packed
+// (launched by _packed_call, called only by scripts/bench_attn.py), which
+// packs two heads of d = 64 block-diagonally into the TPU's 128 lanes: a
+// layout trick with no counterpart here, so each head runs on its own.
+// Its numerics are _flash_kernel's with no mask (fp32 scale on the fp32
+// scores, the row sum over fp32 p, p rounded to v's dtype for P.V): this
+// is flash_forward_masked's loop with causal 0, no lengths and one query
+// head per kv head.  Same bound as flash_forward_fast.
 //
 // Design.  One 256-thread block per (b*h, 64-query tile).  One head's K is
 // 1 MB at T=8192, far above shared memory, so K and V stream through it in
@@ -105,8 +125,9 @@ __host__ __device__ constexpr long long smem_floats(int D, int DC) {
 // kMasked selects the numerics and the masks: false is flash_forward's
 // (scale folded into a rounded q, row sum over rounded p, every key), true
 // is flash_forward_masked's (fp32 scale on the scores, row sum over fp32 p,
-// causal / length masks with the empty key tiles skipped).
-template <typename T, int DC, bool kMasked>
+// causal / length masks with the empty key tiles skipped).  kBf16Scores
+// (unmasked only) rounds each score to bf16 before the running max and exp.
+template <typename T, int DC, bool kMasked, bool kBf16Scores>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.D;
@@ -194,7 +215,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       for (int j = 0; j < 4; ++j) {
         const int row = ty + 16 * i, col = tx + 16 * j;
         const bool keep = k0 + col < valid && !(kMasked && p.causal && k0 + col > q0 + row);
-        st[row * (kBN + 1) + col] = keep ? (kMasked ? __fmul_rn(acc[i][j], p.scale) : acc[i][j]) : -INFINITY;
+        float s = kMasked ? __fmul_rn(acc[i][j], p.scale) : acc[i][j];
+        if (kBf16Scores) s = round_to<__nv_bfloat16>(s);
+        st[row * (kBN + 1) + col] = keep ? s : -INFINITY;
       }
     __syncthreads();
 
@@ -267,24 +290,27 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   }
 }
 
-template <typename T, int DC, bool kMasked>
+template <typename T, int DC, bool kMasked, bool kBf16Scores>
 int launch(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(p.D, DC);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DC, kMasked>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DC, kMasked, kBf16Scores>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.T + kBM - 1) / kBM, B * p.H);
-  flash_fwd_kernel<T, DC, kMasked><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<T, DC, kMasked, kBf16Scores><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <bool kMasked>
+template <bool kMasked, bool kBf16Scores = false>
 int launch_typed(const Params& p, int B, int dtype, cudaStream_t s) {
   if (p.D < 1 || p.D > 128) return (int)cudaErrorInvalidValue;
   const bool narrow = p.D <= 64;
-  if (dtype == 0) return narrow ? launch<float, 4, kMasked>(p, B, s) : launch<float, 8, kMasked>(p, B, s);
+  if (dtype == 0)
+    return narrow ? launch<float, 4, kMasked, kBf16Scores>(p, B, s)
+                  : launch<float, 8, kMasked, kBf16Scores>(p, B, s);
   if (dtype == 1)
-    return narrow ? launch<__nv_bfloat16, 4, kMasked>(p, B, s) : launch<__nv_bfloat16, 8, kMasked>(p, B, s);
+    return narrow ? launch<__nv_bfloat16, 4, kMasked, kBf16Scores>(p, B, s)
+                  : launch<__nv_bfloat16, 8, kMasked, kBf16Scores>(p, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -326,6 +352,24 @@ int flash_forward(const void* q, const void* k, const void* v, void* o, const lo
                   int B, int H, int T, int D, int dtype, float scale, void* stream) {
   const Params p = make_params(q, k, v, o, strides, H, T, D, scale);
   return launch_typed<false>(p, B, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// flash_forward with, when score_bf16 is not 0, every score rounded to
+// bf16 before the running max and exp (_fast_kernel's score_dtype).
+int flash_forward_fast(const void* q, const void* k, const void* v, void* o, const long long* strides,
+                       int B, int H, int T, int D, int dtype, int score_bf16, float scale, void* stream) {
+  const Params p = make_params(q, k, v, o, strides, H, T, D, scale);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return score_bf16 ? launch_typed<false, true>(p, B, dtype, s) : launch_typed<false>(p, B, dtype, s);
+}
+
+// o = softmax(q k^T * scale) v over every key, with _flash_kernel's
+// numerics (_flash_kernel_packed's): flash_forward_masked with causal 0,
+// no lengths and kv heads = H.  Returns cudaGetLastError() after the launch.
+int flash_forward_packed(const void* q, const void* k, const void* v, void* o, const long long* strides,
+                         int B, int H, int T, int D, int dtype, float scale, void* stream) {
+  const Params p = make_params(q, k, v, o, strides, H, T, D, scale);
+  return launch_typed<true>(p, B, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // o = softmax(mask(q k^T * scale)) v, _flash_kernel's numerics.  q and o

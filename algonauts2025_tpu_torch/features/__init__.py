@@ -1,5 +1,12 @@
 """Frozen-feature extraction of the port (device side)."""
 
+from .audio import (
+    TinyAudioBackbone,
+    TorchAudioBackbone,
+    encode_sound_stream,
+    load_audio_backbone,
+    mono_zscore,
+)
 from .text import (
     HashTokenizer,
     TinyTextBackbone,
@@ -16,6 +23,11 @@ from .video import (
 )
 
 __all__ = [
+    "TinyAudioBackbone",
+    "TorchAudioBackbone",
+    "encode_sound_stream",
+    "load_audio_backbone",
+    "mono_zscore",
     "HashTokenizer",
     "TinyTextBackbone",
     "TorchTextBackbone",

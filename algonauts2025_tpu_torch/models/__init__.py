@@ -1,7 +1,12 @@
 """Models of the port: the FmriEncoder trunk, its pieces and the frozen backbones."""
 
 from .common import SubjectLayers
-from .convert import flax_params_to_torch, llama_params_to_torch, vjepa2_params_to_torch
+from .convert import (
+    flax_params_to_torch,
+    llama_params_to_torch,
+    vjepa2_params_to_torch,
+    wav2vec_bert_params_to_torch,
+)
 from .fmri_encoder import FmriEncoder, FmriEncoderConfig
 from .transformer import ScaleNorm, TransformerEncoder, TransformerEncoderConfig
 
@@ -15,4 +20,5 @@ __all__ = [
     "flax_params_to_torch",
     "llama_params_to_torch",
     "vjepa2_params_to_torch",
+    "wav2vec_bert_params_to_torch",
 ]

@@ -7,7 +7,9 @@ Linear ``(out, in)`` weights.  Every leaf must map to a known name: an
 unmatched leaf raises, and loading the result with ``strict=True`` catches
 parameters the tree lacks.  ``vjepa2_params_to_torch`` does the same for
 the V-JEPA2 video backbone, whose scanned layers sit under ``layers/``, and
-``llama_params_to_torch`` for the Llama text backbone, likewise.
+``llama_params_to_torch`` for the Llama text backbone, likewise, and
+``wav2vec_bert_params_to_torch`` for the w2v-BERT audio backbone, whose
+scanned layers sit under ``layers/layer/``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import typing as tp
 import numpy as np
 import torch
 
-__all__ = ["flax_params_to_torch", "vjepa2_params_to_torch", "llama_params_to_torch"]
+__all__ = ["flax_params_to_torch", "vjepa2_params_to_torch", "llama_params_to_torch",
+           "wav2vec_bert_params_to_torch"]
 
 #: flax module names whose torch counterpart has the same name
 _SAME = {
@@ -165,6 +168,55 @@ def llama_params_to_torch(params: tp.Mapping[str, tp.Any]) -> dict[str, torch.Te
             items = [(("layers", str(i)) + path[1:], value[i]) for i in range(value.shape[0])]
         try:
             converted = [_llama_leaf(p, v) for p, v in items]
+        except KeyError:
+            unmatched.append("/".join(path))
+            continue
+        for name, array in converted:
+            out[name] = torch.tensor(np.asarray(array, dtype=np.float32))
+    if unmatched:
+        raise KeyError(f"flax leaves with no torch counterpart: {unmatched}")
+    return out
+
+
+_W2V_DENSES = {
+    "fp_projection", "intermediate_dense", "output_dense", "linear_q", "linear_k", "linear_v",
+    "linear_out", "pointwise_conv1", "pointwise_conv2",
+}
+
+
+def _w2v_leaf(path: tuple[str, ...], value: np.ndarray) -> tuple[str, np.ndarray]:
+    *modules, leaf = path
+    parent = modules[-1] if modules else None
+    if parent is not None and parent.endswith("layer_norm") and leaf in ("scale", "bias"):
+        return ".".join(modules + ["weight" if leaf == "scale" else "bias"]), value
+    if parent in _W2V_DENSES and leaf == "kernel":
+        return ".".join(modules + ["weight"]), np.swapaxes(value, -1, -2)
+    if parent in _W2V_DENSES and leaf == "bias":
+        return ".".join(modules + ["bias"]), value
+    if parent == "depthwise_conv" and leaf == "kernel":  # flax (K, 1, H) -> torch (H, 1, K)
+        return ".".join(modules + ["weight"]), np.transpose(value, (2, 1, 0))
+    if parent == "self_attn" and leaf == "distance_embedding":
+        return ".".join(modules + ["distance_embedding"]), value
+    raise KeyError(leaf)
+
+
+def wav2vec_bert_params_to_torch(params: tp.Mapping[str, tp.Any]) -> dict[str, torch.Tensor]:
+    """The JAX Wav2VecBertBackbone's ``params`` -> the port's state_dict.
+
+    ``layers/layer/...`` leaves hold (num_layers, ...) stacks from
+    ``nn.scan`` and become ``layers.<i>....``; Dense kernels (in, out)
+    become Linear weights (out, in), the pointwise convs included; the
+    depthwise kernel (K, 1, H) becomes the Conv1d weight (H, 1, K).  Every
+    leaf becomes float32 (exact for bf16 and fp32 leaves; the LayerNorms
+    and distance tables stay float32 in the module)."""
+    out: dict[str, torch.Tensor] = {}
+    unmatched = []
+    for path, value in _flatten(params):
+        items = [(path, value)]
+        if path[:2] == ("layers", "layer"):
+            items = [(("layers", str(i)) + path[2:], value[i]) for i in range(value.shape[0])]
+        try:
+            converted = [_w2v_leaf(p, v) for p, v in items]
         except KeyError:
             unmatched.append("/".join(path))
             continue

@@ -1,7 +1,8 @@
-"""Flash attention of the video and text backbones: CUDA kernels + their plain versions.
+"""Flash attention of the video and text backbones and of the attention
+bench: CUDA kernels + their plain versions.
 
-The port of algonauts2025_tpu/ops/flash_attention.py's dispatch, both
-routes in one source, ``csrc/flash_attention.cu``:
+The port of algonauts2025_tpu/ops/flash_attention.py, every route in one
+source, ``csrc/flash_attention.cu``:
 
 - non-causal, no key lengths, a head dim that is not a multiple of 128
   (ViT-G: 8192 tokens, 22 heads of 64): the JAX package's
@@ -17,10 +18,19 @@ routes in one source, ``csrc/flash_attention.cu``:
   to v's dtype for P.V, returns zeros for a row of length 0 and skips the
   key tiles that hold no kept key (``flash_attention_plain``).
 
-Both kernels take any T (the ragged edge is masked in the kernel), so the
-JAX package's q/kv block sizes have no counterpart here.  The off-dispatch
-``_fast_flash`` and ``flash_attention_packed`` are not ported yet
-(ROADMAP queue 2).
+Off the dispatch, for the attention bench (``scripts/bench_attn.py``):
+
+- ``fast_flash_attention``: the JAX package's ``_fast_kernel`` (through
+  ``_fast_flash``), ``flash_forward``'s numerics with an optional rounding
+  of every score to bf16 (``flash_forward_fast``, ``fast_attention_plain``).
+- ``flash_attention_packed``: the JAX package's ``_flash_kernel_packed``,
+  ``_flash_kernel``'s numerics with no mask for d = 64 and an even head
+  count; its head-pair packing into 128 TPU lanes has no counterpart here,
+  each head runs on its own (``flash_forward_packed``,
+  ``packed_attention_plain``).
+
+Every kernel takes any T (the ragged edge is masked in the kernel), so the
+JAX package's q/kv block sizes have no counterpart here.
 """
 
 from __future__ import annotations
@@ -31,10 +41,13 @@ import torch
 
 from . import _cuda
 
-__all__ = ["flash_attention", "bounded_attention_plain", "flash_attention_plain", "launch_counts"]
+__all__ = ["flash_attention", "fast_flash_attention", "flash_attention_packed",
+           "bounded_attention_plain", "fast_attention_plain", "flash_attention_plain",
+           "packed_attention_plain", "launch_counts"]
 
 #: kernel launches since the last reset, counted where the kernel launches
-launch_counts: dict[str, int] = {"flash_attention": 0, "flash_masked": 0}
+launch_counts: dict[str, int] = {"flash_attention": 0, "flash_masked": 0, "flash_fast": 0,
+                                 "flash_packed": 0}
 
 _FORWARD = ("flash_attention", "flash_forward", (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -48,14 +61,28 @@ _MASKED = ("flash_attention", "flash_forward_masked", (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 ))
+_FAST = ("flash_attention", "flash_forward_fast", (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.POINTER(ctypes.c_longlong),
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_void_p,
+))
+_PACKED = ("flash_attention", "flash_forward_packed", _FORWARD[2])
 _MAX_HEAD_DIM = ("flash_attention", "flash_max_head_dim", ())
+#: the score dtypes of ``fast_flash_attention`` (``_fast_kernel``'s score_dtype)
+_SCORE_DTYPES = (torch.float32, torch.bfloat16)
 #: query rows per chunk of the plain version: its fp32 scores are then
 #: (B, H, 1024, T), 0.74 GB for 22 heads of 8192 tokens, not 5.9 GB
 _PLAIN_ROWS = 1024
 
 
-def bounded_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B, H, T, d) exact softmax attention with the kernel's roundings.
+def fast_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, score_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """(B, H, T, d) exact softmax attention with ``_fast_kernel``'s roundings:
+    the scale folded into q and rounded to q's dtype, each fp32 score
+    rounded to ``score_dtype``, p rounded to v's dtype before P.V and the
+    row sum over that rounded p.
 
     Computed in chunks of query rows (rows are independent, so chunking
     changes no value) so that the scores of 8192 tokens fit in memory."""
@@ -64,11 +91,17 @@ def bounded_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     for r0 in range(0, q.shape[-2], _PLAIN_ROWS):
         qs = (q[..., r0 : r0 + _PLAIN_ROWS, :].float() * scale).to(q.dtype).float()
-        s = torch.matmul(qs, kf.transpose(-1, -2))
+        s = torch.matmul(qs, kf.transpose(-1, -2)).to(score_dtype).float()
         p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(v.dtype).float()
         o = torch.matmul(p, vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
         out[..., r0 : r0 + _PLAIN_ROWS, :] = o.to(q.dtype)
     return out
+
+
+def bounded_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, d) exact softmax attention with ``flash_forward``'s
+    roundings: ``fast_attention_plain`` with fp32 scores."""
+    return fast_attention_plain(q, k, v)
 
 
 def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -155,49 +188,46 @@ def _output_and_strides(q, k, v):
     return out, strides
 
 
-def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch ``flash_forward`` of csrc/flash_attention.cu on the current stream.
+def _launch(entry: tuple, counter: str, q, k, v, gqa: bool, *args) -> torch.Tensor:
+    """Launch ``entry`` of csrc/flash_attention.cu on the current stream
+    (``args`` follow the strides in its C interface) and count it.
 
-    q, k and v may be strided views as long as the head dim is contiguous."""
-    _check_qkv(q, k, v, gqa=False)
-    b, h, t, d = q.shape
+    q, k and v may be strided views as long as the head dim is contiguous;
+    with ``gqa``, k and v may have H / rep heads."""
+    _check_qkv(q, k, v, gqa)
     out, strides = _output_and_strides(q, k, v)
     with torch.cuda.device(q.device):
-        err = _cuda.function(*_FORWARD)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            b, h, t, d, _cuda.DTYPE_CODES[q.dtype], d**-0.5, torch.cuda.current_stream().cuda_stream,
+        err = _cuda.function(*entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, *args,
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err} (shape {tuple(q.shape)})")
-    launch_counts["flash_attention"] += 1
+        raise RuntimeError(f"{counter} kernel launch failed: CUDA error {err} "
+                           f"(shape {tuple(q.shape)}, kv heads {k.shape[1]})")
+    launch_counts[counter] += 1
     return out
+
+
+def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``flash_forward``: the bounded kernel's function."""
+    b, h, t, d = q.shape
+    return _launch(_FORWARD, "flash_attention", q, k, v, False,
+                   b, h, t, d, _cuda.DTYPE_CODES[q.dtype], d**-0.5)
 
 
 def _flash_masked_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, lengths: torch.Tensor | None
 ) -> torch.Tensor:
-    """Launch ``flash_forward_masked`` of csrc/flash_attention.cu on the
-    current stream; k and v may have H / rep heads, all three may be
-    strided views with a contiguous head dim."""
-    _check_qkv(q, k, v, gqa=True)
+    """``flash_forward_masked``; k and v may have H / rep heads."""
     b, h, t, d = q.shape
     lens = None
     if lengths is not None:
         if lengths.shape != (b,):
             raise ValueError(f"flash attention kernel: lengths of shape {tuple(lengths.shape)}, want ({b},)")
         lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    out, strides = _output_and_strides(q, k, v)
-    with torch.cuda.device(q.device):
-        err = _cuda.function(*_MASKED)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            None if lens is None else lens.data_ptr(), b, h, k.shape[1], t, d,
-            _cuda.DTYPE_CODES[q.dtype], int(causal), d**-0.5, torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"masked flash attention kernel launch failed: CUDA error {err} "
-                           f"(shape {tuple(q.shape)}, kv heads {k.shape[1]})")
-    launch_counts["flash_masked"] += 1
-    return out
+    return _launch(_MASKED, "flash_masked", q, k, v, True,
+                   None if lens is None else lens.data_ptr(), b, h, k.shape[1], t, d,
+                   _cuda.DTYPE_CODES[q.dtype], int(causal), d**-0.5)
 
 
 def flash_attention(
@@ -223,3 +253,47 @@ def flash_attention(
     if bounded:
         return _flash_cuda(q, k, v)
     return _flash_masked_cuda(q, k, v, causal, lengths)
+
+
+def fast_flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, score_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """(B, H, T, d) non-causal attention with ``_fast_kernel``'s numerics
+    (the scale folded into a rounded q, the row sum over p rounded to v's
+    dtype), each score rounded to ``score_dtype`` (float32 or bfloat16)
+    first.  CUDA tensors launch ``flash_forward_fast``, CPU tensors run
+    ``fast_attention_plain``."""
+    if score_dtype not in _SCORE_DTYPES:
+        raise ValueError(f"fast_flash_attention: score_dtype {score_dtype}, want float32 or bfloat16")
+    if q.device.type == "cpu":
+        return fast_attention_plain(q, k, v, score_dtype)
+    b, h, t, d = q.shape
+    return _launch(_FAST, "flash_fast", q, k, v, False, b, h, t, d, _cuda.DTYPE_CODES[q.dtype],
+                   int(score_dtype == torch.bfloat16), d**-0.5)
+
+
+def _check_packed(q: torch.Tensor) -> None:
+    """``flash_attention_packed``'s contract: head dim 64, an even head count."""
+    if q.dim() != 4 or q.shape[-1] != 64 or q.shape[1] % 2:
+        raise ValueError(f"flash_attention_packed takes (B, H, T, 64) with H even, got {tuple(q.shape)}")
+
+
+def packed_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, 64) non-causal attention with ``_flash_kernel_packed``'s
+    numerics, which are ``flash_attention_plain``'s with no mask."""
+    _check_packed(q)
+    return flash_attention_plain(q, k, v)
+
+
+def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, 64) non-causal attention for an even head count, with
+    ``_flash_kernel``'s numerics (fp32 scale on the scores, the row sum
+    over fp32 p).  Raises ValueError unless d == 64 and H is even, as the
+    JAX version does.  CUDA tensors launch ``flash_forward_packed``, CPU
+    tensors run ``packed_attention_plain``."""
+    _check_packed(q)
+    if q.device.type == "cpu":
+        return packed_attention_plain(q, k, v)
+    b, h, t, d = q.shape
+    return _launch(_PACKED, "flash_packed", q, k, v, False, b, h, t, d, _cuda.DTYPE_CODES[q.dtype],
+                   d**-0.5)

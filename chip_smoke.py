@@ -16,12 +16,16 @@ Phases (any failure exits non-zero):
    ``torch._int_mm`` plus the elementwise quant passes for the int8 ones.
    Two mutants of the masked flash kernel, built from patched copies of
    its source under ``_build/mutants`` (one ignores the key lengths, one
-   ignores ``causal``), must fail the same check.
+   ignores ``causal``), must fail the same check.  The bench-only fast
+   kernel with bf16 scores must differ from itself with fp32 scores, and
+   the packed wrapper must refuse d != 64 and an odd head count.
 3. A small FmriEncoder trained on the card and on the CPU from the same
    weights must agree step by step; a small static-int8 V-JEPA2 backbone
-   (1024 tokens, so every video kernel dispatches) and a small fp32 Llama
-   (512 tokens, right-padded, so the masked flash kernel dispatches) must
-   give the same features on the card as on the CPU from the same weights.
+   (1024 tokens, so every video kernel dispatches), a small fp32 Llama
+   (512 tokens, right-padded, so the masked flash kernel dispatches) and a
+   small fp32 w2v-BERT (48 kHz chunks through the bucketed, pad-masked
+   audio path) must give the same features on the card as on the CPU from
+   the same weights.
 4. The trunk's main path at full width: ``BrainTrainer`` on the flagship
    FmriEncoder configured as ``bench.py``'s ``bench_train`` (0.94 B
    params, batch 16 x 298 steps, remat, InfoNCE, bf16-mu Adam, OneCycle),
@@ -46,7 +50,19 @@ Phases (any failure exits non-zero):
    features of the two must agree; so must the batch's through the same
    weights in fp32.
 
-Before each main path (phases 4, 5 and 6) every kernel's launch counter is
+7. The attention bench path: ``algonauts2025_tpu_torch.scripts.bench_attn``
+   with ``all`` at its (4, 22, 8192, 64) bf16 shape: every variant timed,
+   then held against ``fast``; the launches must be those the bench
+   reckons.
+8. The audio path at full w2v-BERT 2.0 width and depth (24 layers, 1024
+   wide, 16 heads of 64, bf16), seeded weights at the HF init scale: a
+   seeded 48 kHz stereo speech-like signal cut into five chunks of 30-60
+   s, each through ``mono_zscore`` and ``encode_sound_stream`` (resample,
+   5 s buckets, masked mel, conformer, 2 Hz frames), then
+   ``aggregate_layers`` down to the trunk's audio input.  One chunk is
+   encoded again at its exact length, and the two must agree.
+
+Before each main path (phases 4 to 8) every kernel's launch counter is
 zeroed, and it is read just after.  The line before the last is the JSON
 ``kernels`` record; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -55,6 +71,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -67,6 +84,9 @@ import numpy as np
 import torch
 
 from algonauts2025_tpu_torch.data import SegmentData
+from algonauts2025_tpu_torch.features.audio import (
+    TARGET_SR, TorchAudioBackbone, encode_sound_stream, mono_zscore,
+)
 from algonauts2025_tpu_torch.features.text import (
     CHAIN_CHUNK, HashTokenizer, TorchTextBackbone, _bucket_width, encode_word_stream,
 )
@@ -79,11 +99,16 @@ from algonauts2025_tpu_torch.models.backbones.llama import LLAMA_3P2_3B, LlamaBa
 from algonauts2025_tpu_torch.models.backbones.vjepa2 import (
     VJEPA2_VITG, VJEPA2Backbone, VJEPA2Config, _QDense,
 )
+from algonauts2025_tpu_torch.models.backbones.wav2vec_bert import (
+    W2V_BERT_2_0, Wav2VecBertBackbone, Wav2VecBertConfig,
+)
 from algonauts2025_tpu_torch.ops import _cuda
 from algonauts2025_tpu_torch.ops import attention as attn
 from algonauts2025_tpu_torch.ops import flash_attention as flash
 from algonauts2025_tpu_torch.ops import quant
 from algonauts2025_tpu_torch.ops.layer_agg import aggregate_layers
+from algonauts2025_tpu_torch.ops.resample import resample_poly
+from algonauts2025_tpu_torch.scripts import bench_attn
 from algonauts2025_tpu_torch.training import (
     BrainTrainer, OptimConfig, TrainerConfig, build_loss, build_metric,
 )
@@ -407,6 +432,35 @@ VITG_ATTN = (4, 22, 8192, 64)
 FLASH_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
+def flash_case(label: str, out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype,
+               rel_limits: dict = FLASH_REL) -> tuple[bool, float]:
+    """check_flash's comparison: max-abs within min(TOL, 1e-2 max|ref|),
+    relative L2 within ``rel_limits``, finite, the input's dtype and shape.
+    Returns whether it held and the max-abs error."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs().max().item()
+    rel = (torch.linalg.vector_norm(o - r) / torch.linalg.vector_norm(r)).item()
+    limit = min(TOL[dtype], 1e-2 * r.abs().max().item())
+    ok = (out.dtype == dtype and out.shape == ref.shape and torch.isfinite(out).all().item()
+          and err <= limit and rel <= rel_limits[dtype])
+    log(f"{label}: max_abs_err {err:.3e} (tol {limit:.3e}), rel L2 {rel:.3e} (tol {rel_limits[dtype]:.0e}), "
+        f"max|ref| {r.abs().max().item():.3e} {'ok' if ok else 'FAIL'}")
+    return ok, err
+
+
+def time_bench_shape(peaks, kernel, plain) -> tuple[float, float, float, float, str]:
+    """Kernel, plain and ``scaled_dot_product_attention`` times at the
+    bench's (4, 22, 8192, 64) bf16 strided shape, and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    b, h, t, d = VITG_ATTN
+    q, k, v = qkv(VITG_ATTN, torch.bfloat16, True, gen)
+    kernel_ms = time_ms(lambda: kernel(q, k, v), iters=5, warmup=1)
+    plain_ms = time_ms(lambda: plain(q, k, v), iters=2, warmup=1)
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), iters=10)
+    bound_ms, bound_by = bound(4 * b * h * t * t * d, 4 * b * h * t * d * 2, peaks["bfloat16"], peaks)
+    return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
+
+
 def check_flash(peaks: dict[str, float]) -> dict:
     """Kernel A through the backbone's wrapper against its plain version
     (computed in query chunks): max-abs within the port's tolerance and
@@ -425,33 +479,20 @@ def check_flash(peaks: dict[str, float]) -> dict:
         q, k, v = (q * scale).to(dtype), (k * scale).to(dtype), v.to(dtype)
         out = flash.flash_attention(q, k, v)
         torch.cuda.synchronize()
-        ref = flash.bounded_attention_plain(q, k, v)
-        o, r = out.float(), ref.float()
-        err = (o - r).abs().max().item()
-        rel = (torch.linalg.vector_norm(o - r) / torch.linalg.vector_norm(r)).item()
-        limit = min(TOL[dtype], 1e-2 * r.abs().max().item())
-        ok = (out.dtype == dtype and out.shape == q.shape and torch.isfinite(out).all().item()
-              and err <= limit and rel <= FLASH_REL[dtype])
-        log(f"flash_attention {shape} {str(dtype)[6:]}{' strided' if strided else ''}"
-            f"{f' x{scale:g}' if scale != 1 else ''}: max_abs_err {err:.3e} (tol {limit:.3e}), "
-            f"rel L2 {rel:.3e} (tol {FLASH_REL[dtype]:.0e}), max|ref| {r.abs().max().item():.3e} "
-            f"{'ok' if ok else 'FAIL'}")
+        ok, err = flash_case(f"flash_attention {shape} {str(dtype)[6:]}{' strided' if strided else ''}"
+                             f"{f' x{scale:g}' if scale != 1 else ''}", out,
+                             flash.bounded_attention_plain(q, k, v), dtype)
         if not ok:
             raise SystemExit("the flash attention kernel disagrees with its plain version")
         if shape == VITG_ATTN:
             main_err = err
 
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = time_bench_shape(
+        peaks, flash.flash_attention, flash.bounded_attention_plain)
     b, h, t, d = VITG_ATTN
-    q, k, v = qkv(VITG_ATTN, torch.bfloat16, True, gen)
-    kernel_ms = time_ms(lambda: flash.flash_attention(q, k, v), iters=5, warmup=1)
-    plain_ms = time_ms(lambda: flash.bounded_attention_plain(q, k, v), iters=2, warmup=1)
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), iters=10)
-    flops = 4 * b * h * t * t * d
-    nbytes = 4 * b * h * t * d * 2
-    bound_ms, bound_by = bound(flops, nbytes, peaks["bfloat16"], peaks)
     log(f"flash_attention {VITG_ATTN} bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB)")
+        f"({4 * b * h * t * t * d / 1e12:.3f} TFLOP, {4 * b * h * t * d * 2 / 1e6:.1f} MB)")
     return kernel_record("flash_attention", "flash_attention.cu",
                          "algonauts2025_tpu/ops/flash_attention.py:212 (_bounded_kernel)",
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
@@ -587,6 +628,108 @@ def check_flash_masked(peaks: dict[str, float], mutants: dict[str, Path]) -> dic
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
 
 
+# (shape, dtype, strided, score dtype) of check_fast: the bench's shape with
+# both score dtypes, fp32, T = 1 and 37, head dims 32 and 128
+FAST_CASES = [
+    (VITG_ATTN, torch.bfloat16, True, torch.float32),
+    (VITG_ATTN, torch.bfloat16, True, torch.bfloat16),
+    ((1, 22, 8192, 64), torch.float32, True, torch.float32),
+    ((1, 2, 1, 64), torch.float32, False, torch.float32),
+    ((1, 2, 37, 64), torch.bfloat16, False, torch.bfloat16),
+    ((2, 3, 1024, 32), torch.float32, True, torch.float32),
+    ((2, 3, 1024, 128), torch.float32, False, torch.float32),
+    ((2, 3, 1000, 128), torch.bfloat16, True, torch.bfloat16),
+]
+
+
+def check_fast(peaks: dict[str, float]) -> dict:
+    """The bench-only fast kernel (``_fast_kernel``'s function) against
+    ``fast_attention_plain``, with check_flash's limits."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    all_ok, main_err = True, None
+    for shape, dtype, strided, score_dtype in FAST_CASES:
+        q, k, v = (x.to(dtype) for x in qkv(shape, torch.float32, strided, gen))
+        out = flash.fast_flash_attention(q, k, v, score_dtype)
+        torch.cuda.synchronize()
+        ok, err = flash_case(f"flash_fast {shape} {str(dtype)[6:]}{' strided' if strided else ''} "
+                             f"scores {str(score_dtype)[6:]}", out, flash.fast_attention_plain(q, k, v, score_dtype),
+                             dtype)
+        all_ok = all_ok and ok
+        if shape == VITG_ATTN and score_dtype == torch.float32:
+            main_err = err
+    # bf16 scores on fp32 inputs: q and k on a grid of 1/8 make every fp32
+    # score exact in any order of the sum, so kernel and plain version round
+    # the same scores to bf16 and must meet the fp32 limits; the result must
+    # then differ from the fp32-score kernel's by more than those limits
+    q, k, v = qkv((1, 4, 2048, 64), torch.float32, True, gen)
+    q, k = ((x * 8).round().clamp(-16, 16) / 8 for x in (q, k))
+    b16 = flash.fast_flash_attention(q, k, v, torch.bfloat16)
+    ok, _ = flash_case("flash_fast (1, 4, 2048, 64) float32 on a 1/8 grid, scores bfloat16", b16,
+                       flash.fast_attention_plain(q, k, v, torch.bfloat16), torch.float32)
+    f32 = flash.fast_flash_attention(q, k, v)
+    moved = (b16 - f32).abs().max().item()
+    limit = min(TOL[torch.float32], 1e-2 * f32.abs().max().item())
+    log(f"flash_fast bf16 vs fp32 scores on the kernel: max |diff| {moved:.3e} (must exceed {limit:.3e})")
+    if not (all_ok and ok and moved > limit):
+        raise SystemExit("the fast flash kernel disagrees with its plain version, or ignores score_dtype")
+
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = time_bench_shape(
+        peaks, flash.fast_flash_attention, flash.fast_attention_plain)
+    q, k, v = qkv(VITG_ATTN, torch.bfloat16, True, gen)
+    b16_ms = time_ms(lambda: flash.fast_flash_attention(q, k, v, torch.bfloat16), iters=5, warmup=1)
+    log(f"flash_fast {VITG_ATTN} bf16: kernel {kernel_ms:.4f} ms (bf16 scores {b16_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    return kernel_record("flash_fast", "flash_attention.cu",
+                         "algonauts2025_tpu/ops/flash_attention.py:105 (_fast_kernel)",
+                         main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
+
+
+# (shape, dtype, strided) of check_packed: the bench's shape, fp32, T = 1
+# and 37, and a head count the JAX version's block rule would refuse
+PACKED_CASES = [
+    (VITG_ATTN, torch.bfloat16, True),
+    ((1, 22, 8192, 64), torch.float32, True),
+    ((1, 2, 1, 64), torch.float32, False),
+    ((1, 2, 37, 64), torch.bfloat16, False),
+    ((3, 6, 1000, 64), torch.float32, True),
+]
+
+
+def check_packed(peaks: dict[str, float]) -> dict:
+    """The bench-only packed kernel (``_flash_kernel_packed``'s function)
+    against ``packed_attention_plain``, with check_flash's limits; d = 32
+    and an odd head count must raise."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    all_ok, main_err = True, None
+    for shape, dtype, strided in PACKED_CASES:
+        q, k, v = (x.to(dtype) for x in qkv(shape, torch.float32, strided, gen))
+        out = flash.flash_attention_packed(q, k, v)
+        torch.cuda.synchronize()
+        ok, err = flash_case(f"flash_packed {shape} {str(dtype)[6:]}{' strided' if strided else ''}", out,
+                             flash.packed_attention_plain(q, k, v), dtype)
+        all_ok = all_ok and ok
+        if shape == VITG_ATTN:
+            main_err = err
+    refused = 0
+    for shape in ((1, 2, 64, 32), (1, 3, 64, 64)):
+        q = torch.zeros(shape, device="cuda")
+        try:
+            flash.flash_attention_packed(q, q, q)
+        except ValueError:
+            refused += 1
+    log(f"flash_packed refuses d = 32 and H = 3: {refused == 2}")
+    if not (all_ok and refused == 2):
+        raise SystemExit("the packed flash kernel disagrees with its plain version, or takes a bad shape")
+
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = time_bench_shape(
+        peaks, flash.flash_attention_packed, flash.packed_attention_plain)
+    log(f"flash_packed {VITG_ATTN} bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    return kernel_record("flash_packed", "flash_attention.cu",
+                         "algonauts2025_tpu/ops/flash_attention.py:424 (_flash_kernel_packed)",
+                         main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
+
+
 @torch.no_grad()
 def quantized_backbone(cfg: VJEPA2Config, gen: torch.Generator, device="cuda") -> VJEPA2Backbone:
     """A dynamic-scale int8 backbone from seeded float weights at a dense
@@ -664,6 +807,59 @@ def check_small_llama_against_cpu() -> None:
         raise SystemExit("the small Llama on the card disagrees with the CPU")
 
 
+# the audio path's input: 48 kHz stereo, as the production study's wav files
+AUDIO_SR = 48000
+# limit of the small audio check (times max|ref|): the fp32 conformer on
+# both sides; cuFFT and pocketfft differ in the last bits, which the mel
+# log amplifies (first reading on an H100: 1.2e-5)
+AUDIO_CPU_TOL = 1e-4
+
+
+def speech_like(n: int, sr: int, rng: np.random.Generator) -> np.ndarray:
+    """An AM-modulated harmonic stack over a noise floor (a voiced-speech
+    stand-in, the generator of the JAX package's resampling tests)."""
+    t = np.arange(n) / sr
+    f0 = 120 * (1 + 0.1 * np.sin(2 * np.pi * 2.5 * t))
+    x = sum(np.sin(2 * np.pi * k * f0 * t) / k for k in range(1, 9))
+    x = x * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t))
+    return (x + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+
+def stereo_chunks(durations, sr: int, seed: int) -> list[tuple[np.ndarray, int, float]]:
+    """A seeded stereo speech-like signal cut into consecutive chunks of
+    ``durations`` seconds, each z-scored to mono as the feature reads a
+    ``Sound`` event: ``(wav, sr, duration)``."""
+    rng = np.random.default_rng(seed)
+    sizes = [int(round(d * sr)) for d in durations]
+    stereo = np.stack([speech_like(sum(sizes), sr, rng) for _ in range(2)], axis=1)
+    starts = np.cumsum([0] + sizes)
+    return [(mono_zscore(stereo[a : a + n]), sr, d) for a, n, d in zip(starts, sizes, durations)]
+
+
+@torch.no_grad()
+def check_small_audio_against_cpu() -> None:
+    """A small fp32 w2v-BERT (2 layers, 128 wide) on the card and on the CPU
+    from the same weights: two 48 kHz chunks through ``encode_sound_stream``
+    (resampled, padded to the 5 s bucket, so the pad masks run) must give
+    the same features."""
+    cfg = Wav2VecBertConfig(hidden_size=128, num_layers=2, num_heads=4, intermediate_size=256,
+                            conv_kernel_size=7, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    model = Wav2VecBertBackbone(cfg, device="cuda").init_random(gen)
+    cpu_model = Wav2VecBertBackbone(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    chunks = stereo_chunks((2.7, 4.1), AUDIO_SR, SEED + 16)
+    gpu = list(encode_sound_stream(TorchAudioBackbone(model), chunks))
+    cpu = list(encode_sound_stream(TorchAudioBackbone(cpu_model, device="cpu"), chunks))
+    err = max(np.abs(a - b).max() for a, b in zip(gpu, cpu))
+    scale = max(np.abs(b).max() for b in cpu)
+    log(f"small fp32 w2v-BERT (2 layers, 128 wide, 48 kHz chunks of 2.7 and 4.1 s in 5 s buckets), "
+        f"card vs CPU: max_abs_err {err:.3e} (tol {AUDIO_CPU_TOL:.0e} x max|ref| {scale:.3e}), "
+        f"shapes {[a.shape for a in gpu]}")
+    if [a.shape for a in gpu] != [b.shape for b in cpu] or not err <= AUDIO_CPU_TOL * scale:
+        raise SystemExit("the small w2v-BERT on the card disagrees with the CPU")
+
+
 def plain_features(encode, windows: np.ndarray) -> np.ndarray:
     """``encode(windows)`` with every kernel of the backbone swapped for its
     plain version on the card: the same model, scales and inputs."""
@@ -687,9 +883,9 @@ def video_path(n_windows: int = 10, window_batch: int = 4) -> dict:
     reset_counts()
     model = _calibrated_static_model(model, cfg.frames_per_clip, cfg.crop_size)
     torch.cuda.synchronize()
-    calib = {**flash.launch_counts, **quant.launch_counts}
+    calib = launch_counts()
     log(f"ViT-G built and calibrated in {time.perf_counter() - t0:.1f} s; calibration launches {calib}")
-    if calib != {"flash_attention": cfg.num_layers, "flash_masked": 0, "w8a8": 0, "int8_mlp": 0}:
+    if calib != {**{key: 0 for key in calib}, "flash_attention": cfg.num_layers}:
         raise SystemExit("calibration did not launch the kernels as expected")
     backbone = TorchVideoBackbone(model, n_frames=cfg.frames_per_clip, crop_size=cfg.crop_size)
     rng = np.random.default_rng(SEED + 6)
@@ -710,10 +906,10 @@ def video_path(n_windows: int = 10, window_batch: int = 4) -> dict:
     reset_counts()
     feats = encode_window_stream(backbone, windows, window_batch)
     torch.cuda.synchronize()
-    launches = {**flash.launch_counts, **quant.launch_counts}
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_batches = -(-n_windows // window_batch)
-    expected = {"flash_attention": cfg.num_layers * n_batches, "flash_masked": 0,
+    expected = {**{key: 0 for key in launches}, "flash_attention": cfg.num_layers * n_batches,
                 "w8a8": 4 * cfg.num_layers * n_batches, "int8_mlp": cfg.num_layers * n_batches}
     trunk_input = aggregate_layers(feats, [0.5, 0.75, 1.0])
     log(f"video features {feats.shape}, trunk input {trunk_input.shape}; batch seconds {batch_s}")
@@ -890,6 +1086,139 @@ def text_path(n_words: int = 1280, batch_size: int = 8, context_cap: int = 1024)
             "word_ms": wall_s / n_words * 1e3, "peak_gb": peak_gb}
 
 
+# limits of each bench variant against ``fast`` on the (1, 2)-head slice
+# (max-abs, mean relative): default and bounded run the fast kernel's
+# function with fp32 scores, so they must be equal to it; the others ~4x
+# the first readings on an H100 (PERF.md: fastb16 9.8e-4 / 4.3e-3, packed
+# 4.9e-4 / 2.3e-5; one bf16 ulp at the outputs' ~0.2 is 9.8e-4)
+BENCH_ERR = {"default": (0.0, 0.0), "bounded": (0.0, 0.0), "fastb16": (4e-3, 2e-2), "packed": (2e-3, 1e-4)}
+
+
+def bench_path() -> dict:
+    """The attention bench's entry point with every variant at its full shape."""
+    reset_counts()
+    result = bench_attn.run(["all"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expected = {**{key: 0 for key in launches}, **result["launches"]}
+    log(f"bench launches {launches} (reckoned {expected})")
+    if launches != expected:
+        raise SystemExit("the attention bench did not launch the kernels as it reckons")
+    ok = True
+    for name, (max_abs, mean_rel) in result["err"].items():
+        limit = BENCH_ERR[name]
+        held = max_abs <= limit[0] and mean_rel <= limit[1]
+        log(f"bench {name} vs fast: max_abs {max_abs:.3e} (tol {limit[0]:.0e}), mean_rel {mean_rel:.3e} "
+            f"(tol {limit[1]:.0e}) {'ok' if held else 'FAIL'}")
+        ok = ok and held
+    if not ok or sorted(result["err"]) != sorted(BENCH_ERR):
+        raise SystemExit("a bench variant disagrees with the fast kernel")
+    return {"launches": launches, "ms": result["ms"]}
+
+
+# the production ChunkEvents range (grids/defaults.py: Sound chunks of
+# 30-60 s) as five chunks; their 5 s buckets at 16 kHz
+AUDIO_CHUNKS_S = (30.0, 38.3, 44.9, 52.6, 60.0)
+AUDIO_BUCKETS = (480000, 640000, 720000, 880000, 960000)
+# limits of the bucketed against the exact-length call of one chunk: per
+# layer relative L2 and min cosine of the (D, n_out) features, ~2.5x the
+# first reading on an H100 (PERF.md: 1.9e-2 at layer 18, cosine 0.99979).
+# Layer 0 differs by 2.9e-5 (the masked mel statistics); each bf16 layer
+# adds roundings under other matmul shapes, carried up by the random weights
+AUDIO_BUCKET_LIMITS = (5e-2, 0.999)
+
+
+def w2v_flops(cfg: Wav2VecBertConfig, t: int) -> float:
+    """Matmul operations of one forward over ``t`` frames: the feature
+    projection, then per layer the two FFNs, q/k/v/out, scores and P.V,
+    the distance projection and the conv module."""
+    h, f, k = cfg.hidden_size, cfg.intermediate_size, cfg.conv_kernel_size
+    n_pos = cfg.left_max_pos + cfg.right_max_pos + 1
+    layer = 8 * t * h * f + 8 * t * h * h + 4 * t * t * h + 2 * t * n_pos * h + 6 * t * h * h + 2 * t * h * k
+    return 2 * t * cfg.input_dim * h + cfg.num_layers * layer
+
+
+def profile_chunk(backbone: TorchAudioBackbone, chunk, unprofiled_ms: float, top: int = 10) -> None:
+    """One chunk again under ``torch.profiler``: the device time of its
+    kernels by name, and their sum against the chunk's unprofiled host
+    time (the rest is the device's idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        list(encode_sound_stream(backbone, [chunk]))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"audio {chunk[2]} s chunk under torch.profiler: device kernels {busy_ms:.3f} ms in "
+        f"{sum(e.count for e in kernels)} launches, {busy_ms / unprofiled_ms:.3f} of the unprofiled "
+        f"{unprofiled_ms:.3f} ms; top kernels by device time:")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+
+
+@torch.no_grad()
+def audio_path(peaks: dict[str, float]) -> dict:
+    """The audio path at full w2v-BERT 2.0 width and depth."""
+    cfg = W2V_BERT_2_0
+    # the earlier paths' models sit in reference cycles (a backbone holding
+    # its own timed bound method); free them so the peak is this path's
+    gc.collect()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    t0 = time.perf_counter()
+    model = Wav2VecBertBackbone(cfg, device="cuda").init_random(gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    backbone = TorchAudioBackbone(model)
+    chunks = stereo_chunks(AUDIO_CHUNKS_S, AUDIO_SR, SEED + 12)
+    torch.cuda.synchronize()
+    log(f"w2v-BERT 2.0 built in {time.perf_counter() - t0:.1f} s: {n_params} params; chunks of "
+        f"{AUDIO_CHUNKS_S} s of 48 kHz stereo")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    feats, chunk_s = [], []
+    t0 = time.perf_counter()
+    for latents in encode_sound_stream(backbone, chunks):  # each ends in a copy to the host
+        chunk_s.append(time.perf_counter() - t0)
+        feats.append(latents)
+        t0 = time.perf_counter()
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_outs = [max(1, int(np.round(d * 2))) for d in AUDIO_CHUNKS_S]
+    trunk_input = np.concatenate([aggregate_layers(f, [0.5, 0.75, 1.0]) for f in feats], axis=-1)
+    ms_chunk = statistics.mean(chunk_s[1:]) * 1e3
+    per_hour = sum(chunk_s[1:]) / sum(AUDIO_CHUNKS_S[1:]) * 3600
+    frames = 1 + (AUDIO_BUCKETS[-1] - 400) // 160
+    flops = w2v_flops(cfg, frames // 2)
+    log(f"audio features {[f.shape for f in feats]}, trunk input {trunk_input.shape}; buckets "
+        f"{sorted(backbone.bucket_shapes)}; chunk seconds {[round(x, 4) for x in chunk_s]}")
+    log(f"audio path: {ms_chunk:.2f} ms per chunk (first excluded), {per_hour:.3f} s per hour of audio, "
+        f"peak {peak_gb:.2f} GB; a 60 s chunk is {flops / 1e12:.3f} TFLOP, "
+        f"{1e3 * flops / peaks['bfloat16']:.3f} ms at the bf16 peak; launches {launches}")
+    want = [(cfg.num_layers + 1, cfg.hidden_size, n) for n in n_outs]
+    if [f.shape for f in feats] != want or not all(np.isfinite(f).all() for f in feats):
+        raise SystemExit(f"audio features: shapes {[f.shape for f in feats]} (want {want}) or non-finite values")
+    if trunk_input.shape != (2, cfg.hidden_size, sum(n_outs)) or not np.isfinite(trunk_input).all():
+        raise SystemExit(f"aggregate_layers gave {trunk_input.shape} or non-finite values")
+    if sorted(b for b, _ in backbone.bucket_shapes) != list(AUDIO_BUCKETS) or any(launches.values()):
+        raise SystemExit("the audio path ran other buckets than reckoned, or launched a kernel")
+
+    profile_chunk(backbone, chunks[-1], chunk_s[-1] * 1e3)
+
+    # the 38.3 s chunk again at its exact length: the padding is masked out
+    wav, sr, _ = chunks[1]
+    exact = backbone.hidden_states_2hz(resample_poly(torch.from_numpy(wav).cuda(), sr, TARGET_SR), n_outs[1])
+    got, ref = feats[1].astype(np.float64), exact.astype(np.float64)
+    rel = np.linalg.norm(got - ref, axis=(1, 2)) / np.linalg.norm(ref, axis=(1, 2))
+    cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
+    rel_tol, cos_tol = AUDIO_BUCKET_LIMITS
+    log(f"audio 38.3 s chunk, bucketed (40 s) vs exact length: max rel L2 {rel.max():.3e} "
+        f"(tol {rel_tol:.0e}) at layer {int(rel.argmax())}, min cosine {cos.min():.6f} (tol {cos_tol}); "
+        f"by layer {' '.join(f'{r:.1e}' for r in rel)}")
+    if not (rel.max() <= rel_tol and cos.min() >= cos_tol):
+        raise SystemExit("the bucketed audio features disagree with the exact-length call")
+    return {"ms_chunk": ms_chunk, "per_hour": per_hour, "peak_gb": peak_gb, "n_params": n_params}
+
+
 FLAGSHIP_DIMS = {"text": (2, 3072), "audio": (2, 1024), "video": (2, 1408)}
 METRICS = [
     {"log_name": "pearson", "name": "MultidimPearsonCorrCoef", "kwargs": {"num_outputs": 1000}},
@@ -1008,10 +1337,11 @@ def main() -> None:
     torch.manual_seed(SEED)
     mutants = build_kernels()
     kernels = [check_attention(peaks), check_flash(peaks), check_flash_masked(peaks, mutants),
-               check_w8a8(peaks), check_int8_mlp(peaks)]
+               check_fast(peaks), check_packed(peaks), check_w8a8(peaks), check_int8_mlp(peaks)]
     check_small_against_cpu()
     check_small_backbone_against_cpu()
     check_small_llama_against_cpu()
+    check_small_audio_against_cpu()
     run = main_path()
     log(f"trunk path: median step {run['step_s']:.4f} s, peak {run['peak_gb']:.2f} GB, "
         f"{run['n_params']} params on {name_and_limit}")
@@ -1021,10 +1351,21 @@ def main() -> None:
     text = text_path()
     log(f"text path: {text['batch_ms']:.2f} ms per (8, 1024) batch forward (first excluded), "
         f"{text['word_ms']:.3f} ms per word, peak {text['peak_gb']:.2f} GB on {name_and_limit}")
-    launches = {"attention": run["attention"], **video["launches"],
-                "flash_masked": text["launches"]["flash_masked"]}
+    bench = bench_path()
+    log(f"attention bench: {bench['ms']} ms per call on {name_and_limit}")
+    audio = audio_path(peaks)
+    log(f"audio path: {audio['ms_chunk']:.2f} ms per 30-60 s chunk (first excluded), "
+        f"{audio['per_hour']:.3f} s per hour of audio, peak {audio['peak_gb']:.2f} GB, "
+        f"{audio['n_params']} params on {name_and_limit}")
+    # each kernel's launches from the path that runs it
+    launches = {**video["launches"], "attention": run["attention"],
+                "flash_masked": text["launches"]["flash_masked"],
+                "flash_fast": bench["launches"]["flash_fast"],
+                "flash_packed": bench["launches"]["flash_packed"]}
     for record in kernels:
         record["launches"] = launches[record["name"]]
+    if not all(record["launches"] for record in kernels):
+        raise SystemExit(f"a kernel was launched no time on its path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
