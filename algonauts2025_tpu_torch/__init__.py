@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of algonauts2025_tpu (the trunk training and video feature slices).
+"""PyTorch/CUDA port of algonauts2025_tpu: trunk training and the video, text and audio feature paths.
 
 Mirrors the JAX package's layout (ops/, models/, features/, training/) and imports
 nothing of it.  See README.md, section "PyTorch/CUDA port".

@@ -1,5 +1,8 @@
 // Flash attention for the V-JEPA2 and Llama backbones and the attention
-// bench, sm_90a: one tile loop, two numerics, four C entry points.
+// bench, sm_90a: four C entry points over two tile loops, one for each
+// dtype.  bf16 runs on the tensor cores (wgmma, TMA); fp32 stays on the
+// CUDA cores, since the port's fp32 contract (TF32 off) rules the tensor
+// cores out for fp32 and no main path runs fp32 attention.
 //
 // flash_forward (the video backbone's long non-causal attention).
 // Replaces: algonauts2025_tpu/ops/flash_attention.py::_bounded_kernel (the
@@ -13,12 +16,6 @@
 // running (online) maximum instead, which gives the same exact softmax and
 // cannot overflow.
 //
-// What bounds it on an H100: at ViT-G (B=4 windows, H=22, T=8192, d=64,
-// bf16) one call is 4*B*H*T^2*d = 1.51 TFLOP against 0.18 GB of q, k, v
-// and o, so the bound is operations: 1.53 ms at the 989 TFLOP/s bf16
-// tensor-core peak.  This first version does its arithmetic in fp32 on the
-// CUDA cores (no mma/wgmma), far from that bound.
-//
 // flash_forward_masked (the Llama backbone's decoder attention).
 // Replaces: algonauts2025_tpu/ops/flash_attention.py::_flash_kernel (launched
 // by flash_attention with causal=True and/or right-padded key lengths):
@@ -29,12 +26,9 @@
 // the TPU kernel it skips key tiles past the diagonal, past lengths[b] and
 // past T, so causal work is about half of the full product.  GQA: query
 // head h reads kv head h / (H / kv_heads), the order jnp.repeat gives,
-// without materialising the repeat.  At Llama-3.2-3B's (8, 24, 1024, 128)
-// bf16 causal with 8 kv heads, one call is 51.5 GFLOP against 134 MB of q,
-// k, v and o: the bound is operations, 0.052 ms at the bf16 tensor-core
-// peak; this version runs fp32 FMAs on the CUDA cores.  The query tiles of
-// a head are launched heaviest first (the last causal tile streams every
-// key), so the longest blocks do not start last.
+// without materialising the repeat.  The query tiles of a head are
+// launched heaviest first (the last causal tile streams every key), so the
+// longest blocks do not start last.
 //
 // flash_forward_fast (the attention bench's online-max baseline).
 // Replaces: algonauts2025_tpu/ops/flash_attention.py::_fast_kernel (launched by
@@ -42,9 +36,7 @@
 // numerics (scale folded into a rounded q, running max, the row sum over p
 // rounded to v's dtype, which the TPU kernel takes through a ones-lane in
 // v's padding), with an optional rounding of every score to bf16 before the
-// running max and exp.  The same kernel as flash_forward under a third
-// template flag; at the bench's (4, 22, 8192, 64) bf16 the bound is
-// flash_forward's, 1.53 ms of operations.
+// running max and exp: flash_forward's loop under a third template flag.
 //
 // flash_forward_packed (the attention bench's head-pair packed variant).
 // Replaces: algonauts2025_tpu/ops/flash_attention.py::_flash_kernel_packed
@@ -54,31 +46,58 @@
 // Its numerics are _flash_kernel's with no mask (fp32 scale on the fp32
 // scores, the row sum over fp32 p, p rounded to v's dtype for P.V): this
 // is flash_forward_masked's loop with causal 0, no lengths and one query
-// head per kv head.  Same bound as flash_forward_fast.
+// head per kv head.
 //
-// Design.  One 256-thread block per (b*h, 64-query tile).  One head's K is
-// 1 MB at T=8192, far above shared memory, so K and V stream through it in
-// 64-key tiles with an online softmax; the scores never leave the chip.
-// The 64 x d query tile is scaled, rounded and kept in shared memory for
-// the whole key loop; each thread owns a 4 x 4 tile of every 64 x 64 score
-// block and a 4 x (d/16) tile of the output accumulator in registers.
-// Head dims up to 128 are taken.  Ragged T is masked in the kernel
-// (zero-filled loads, -inf scores for keys >= T, no stores past T).
+// What bounds it on an H100: at ViT-G and the bench (B=4, H=22, T=8192,
+// d=64, bf16) one call is 4*B*H*T^2*d = 1.51 TFLOP against 0.18 GB of q,
+// k, v and o; at Llama-3.2-3B's (8, 24, 1024, 128) bf16 causal with 8 kv
+// heads, 51.6 GFLOP against 134 MB.  Both are bound by operations (1.53 and
+// 0.052 ms at the 989 TFLOP/s bf16 tensor-core peak), so the bf16 loop has
+// to run its two products on the tensor cores and keep the softmax, which
+// at d = 64 takes one exp for every 256 tensor-core operations, off their
+// path.
+//
+// bf16 design (flash_tc_kernel).  One block per (b*h, 128-query tile):
+// two consumer warpgroups of 64 query rows each and one producer warp.
+// The producer's elected thread loads the q tile once and streams 128-key
+// tiles of K and V through a two-stage ring in shared memory with TMA
+// (one 4-d tensor map per operand over (d, t, h, b) with the caller's
+// strides, so strided head views need no copy; 128-byte swizzle; the
+// out-of-bounds zero fill covers the ragged T edge and the head-dim columns
+// past D), signalled by mbarriers (full: bytes arrived; empty: all 256
+// consumer threads done).  Each consumer warpgroup computes S = Q K^T with
+// wgmma m64n128k16 from shared memory (K row-major is K-major for this
+// product), applies the scale, the optional bf16 score rounding and the
+// masks to S in registers, runs the online softmax on its fragment (each
+// thread holds two rows; the row max and sum need two shuffles), converts
+// p to bf16 pairs in place -- the accumulator layout of S is the register
+// A-operand layout of P -- and accumulates O += P V with wgmma from
+// registers, V being the transposed (MN-major) shared-memory operand.
+// Scores never touch shared memory.  The two warpgroups run out of step,
+// so one's softmax overlaps the other's products.  Head dims up to 64 run
+// at 64 and up to 128 at 128 (zero columns leave the dot products as they
+// are).  The layout contract that TMA needs (16-byte aligned bases, b, h
+// and t strides in multiples of 8 elements) is checked by the wrapper.
+//
+// fp32 design (flash_fwd_kernel).  One 256-thread block per (b*h, 64-query
+// tile); K and V stream through shared memory in 64-key tiles with the
+// same online softmax; each thread owns a 4 x 4 tile of every 64 x 64
+// score block and a 4 x (d/16) tile of the output accumulator in
+// registers, with fp32 FMAs.
 //
 // Layout.  q, k, v and o are (B, H, T, d) with unit stride on d and any
-// strides on B, H and T (in elements), so the backbone hands over the
-// head-split views of its (B, T, H*d) projections without copies and gets
-// the output back in (B, T, H, d) order.
+// strides on B, H and T (in elements; for bf16 within the TMA contract),
+// so the backbone hands over the head-split views of its (B, T, H*d)
+// projections without copies and gets the output back in (B, T, H, d)
+// order.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
-
-constexpr int kBM = 64;  // query rows per block
-constexpr int kBN = 64;  // keys per streamed tile
-constexpr int kThreads = 256;
 
 struct Params {
   const void* q;
@@ -93,27 +112,14 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
-// x rounded to T and back (identity for fp32)
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+// ---------------------------------------------------------------------------
+// fp32: the CUDA-core loop
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+constexpr int kBM = 64;  // query rows per block
+constexpr int kBN = 64;  // keys per streamed tile
+constexpr int kThreads = 256;
 
 // shared memory in floats for head dim D and DC output columns per thread:
 // q and k tiles (kBM/kBN x (D+1)), v tile (kBN x 16*DC), score tile
@@ -123,11 +129,12 @@ __host__ __device__ constexpr long long smem_floats(int D, int DC) {
 }
 
 // kMasked selects the numerics and the masks: false is flash_forward's
-// (scale folded into a rounded q, row sum over rounded p, every key), true
-// is flash_forward_masked's (fp32 scale on the scores, row sum over fp32 p,
-// causal / length masks with the empty key tiles skipped).  kBf16Scores
-// (unmasked only) rounds each score to bf16 before the running max and exp.
-template <typename T, int DC, bool kMasked, bool kBf16Scores>
+// (scale folded into q, row sum over p, every key), true is
+// flash_forward_masked's (scale on the scores, causal / length masks with
+// the empty key tiles skipped).  In fp32 the roundings to the input dtype
+// are the identity.  kBf16Scores (unmasked only) rounds each score to bf16
+// before the running max and exp.
+template <int DC, bool kMasked, bool kBf16Scores>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.D;
@@ -145,16 +152,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const int h = blockIdx.y % p.H;
   const int hk = h / p.rep;
   const int q0 = (kMasked ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBM;
-  const T* qg = static_cast<const T*>(p.q) + b * p.sq[0] + h * p.sq[1];
-  const T* kg = static_cast<const T*>(p.k) + b * p.sk[0] + hk * p.sk[1];
-  const T* vg = static_cast<const T*>(p.v) + b * p.sv[0] + hk * p.sv[1];
+  const float* qg = static_cast<const float*>(p.q) + b * p.sq[0] + h * p.sq[1];
+  const float* kg = static_cast<const float*>(p.k) + b * p.sk[0] + hk * p.sk[1];
+  const float* vg = static_cast<const float*>(p.v) + b * p.sv[0] + hk * p.sv[1];
   // keys col < valid are kept; tiles from kv_end on hold no kept key
   int valid = Tn, kv_end = Tn;
   if (kMasked) {
     if (p.lengths != nullptr) valid = max(0, min(p.lengths[b], Tn));
     kv_end = p.causal ? min(valid, q0 + kBM) : valid;
   }
-  T* og = static_cast<T*>(p.o) + b * p.so[0] + h * p.so[1];
+  float* og = static_cast<float*>(p.o) + b * p.so[0] + h * p.so[1];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // owns columns tx + 16*j
@@ -162,12 +169,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  // q tile; unmasked: scale folded in and rounded to q's dtype,
-  // (q * d^-1/2).astype(q.dtype)
+  // q tile; unmasked: scale folded in
   for (int i = tid; i < kBM * D; i += kThreads) {
     const int r = i / D, d = i % D, t = q0 + r;
-    const float x = t < Tn ? to_float(qg[t * p.sq[2] + d]) : 0.f;
-    qs[r * (D + 1) + d] = kMasked ? x : round_to<T>(__fmul_rn(x, p.scale));
+    const float x = t < Tn ? qg[t * p.sq[2] + d] : 0.f;
+    qs[r * (D + 1) + d] = kMasked ? x : __fmul_rn(x, p.scale);
   }
   if (tid < kBM) {
     row_max[tid] = -INFINITY;
@@ -183,11 +189,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     // ---- stream the k and v tiles ----
     for (int i = tid; i < kBN * D; i += kThreads) {
       const int r = i / D, d = i % D, t = k0 + r;
-      ks[r * (D + 1) + d] = t < Tn ? to_float(kg[t * p.sk[2] + d]) : 0.f;
+      ks[r * (D + 1) + d] = t < Tn ? kg[t * p.sk[2] + d] : 0.f;
     }
     for (int i = tid; i < kBN * DV; i += kThreads) {
       const int r = i / DV, d = i % DV, t = k0 + r;
-      vs[i] = (t < Tn && d < D) ? to_float(vg[t * p.sv[2] + d]) : 0.f;
+      vs[i] = (t < Tn && d < D) ? vg[t * p.sv[2] + d] : 0.f;
     }
     __syncthreads();
 
@@ -216,15 +222,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
         const int row = ty + 16 * i, col = tx + 16 * j;
         const bool keep = k0 + col < valid && !(kMasked && p.causal && k0 + col > q0 + row);
         float s = kMasked ? __fmul_rn(acc[i][j], p.scale) : acc[i][j];
-        if (kBf16Scores) s = round_to<__nv_bfloat16>(s);
+        if (kBf16Scores) s = round_bf16(s);
         st[row * (kBN + 1) + col] = keep ? s : -INFINITY;
       }
     __syncthreads();
 
-    // ---- online softmax, p rounded to v's dtype for P.V; the row sum is
-    // over that rounded p (unmasked) or over fp32 p (masked); each warp
-    // owns kBM/8 rows.  m_new is finite: tile 0 keeps key 0 in every row
-    // (causal: 0 <= row; lengths: the loop runs only when valid > 0) ----
+    // ---- online softmax; each warp owns kBM/8 rows.  m_new is finite:
+    // tile 0 keeps key 0 in every row (causal: 0 <= row; lengths: the loop
+    // runs only when valid > 0) ----
     for (int rr = 0; rr < kBM / 8; ++rr) {
       const int r = warp * (kBM / 8) + rr;
       float* srow = st + r * (kBN + 1);
@@ -237,11 +242,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       const float m_new = fmaxf(m_old, mx);
       const float e0 = expf(s0 - m_new);
       const float e1 = expf(s1 - m_new);
-      const float p0 = round_to<T>(e0);
-      const float p1 = round_to<T>(e1);
-      srow[lane] = p0;
-      srow[lane + 32] = p1;
-      float sum = kMasked ? e0 + e1 : p0 + p1;
+      srow[lane] = e0;
+      srow[lane + 32] = e1;
+      float sum = e0 + e1;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
       if (lane == 0) {
@@ -285,32 +288,501 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
       const int c = tx + 16 * j;
-      if (c < D) og[t * p.so[2] + c] = from_float<T>(o[i][j] / l);
+      if (c < D) og[t * p.so[2] + c] = o[i][j] / l;
     }
   }
 }
 
-template <typename T, int DC, bool kMasked, bool kBf16Scores>
-int launch(const Params& p, int B, cudaStream_t stream) {
+template <int DC, bool kMasked, bool kBf16Scores>
+int launch_fp32(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(p.D, DC);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DC, kMasked, kBf16Scores>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DC, kMasked, kBf16Scores>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.T + kBM - 1) / kBM, B * p.H);
-  flash_fwd_kernel<T, DC, kMasked, kBf16Scores><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<DC, kMasked, kBf16Scores><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core loop
+
+namespace tc {
+
+constexpr int kWarpgroups = 2;               // consumer warpgroups, 64 query rows each
+constexpr int kRows = 64 * kWarpgroups;      // query rows per block
+constexpr int kKeys = 128;                   // keys per streamed tile
+constexpr int kStages = 2;                   // K/V ring depth
+constexpr int kConsumers = 128 * kWarpgroups;
+constexpr int kThreads = kConsumers + 32;    // and one producer warp
+constexpr int kPanelBytes = 128;             // one swizzle row: 64 bf16 columns
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of a block for head dim kD, in bytes from a 1024-aligned
+// base.  Each tile is kD / 64 column panels of (rows x 128 B), as TMA
+// writes them with the 128-byte swizzle.
+template <int kD>
+struct Smem {
+  static constexpr int kPanels = kD / 64;
+  static constexpr int kQBytes = kRows * kD * 2;
+  static constexpr int kTileBytes = kKeys * kD * 2;  // one K or V tile
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;  // q, full[kStages], empty[kStages]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;  // + the alignment slack
+};
+
+struct TcParams {
+  CUtensorMap q, k, v;  // over (d, t, h, b); k and v at the kv heads
+  void* o;
+  long long so[3];  // strides of o's b, h, t in elements
+  const int* lengths;
+  int H, T, D, rep, causal, o_pairs;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Block until the phase of ``bar`` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA tile of a 4-d tensor map into shared memory, counted on ``bar``.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor for the 128-byte swizzle: start
+// address, leading and stride byte offsets (>> 4), layout type 1 (B128).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Pin an accumulator's registers here, so that no read of them moves above
+// the wgmma wait that completes them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d (+)= A B for one k16 step, A (64 x 16) and B (16 x 128) in shared
+// memory, both K-major (128-byte swizzle); kAcc = false overwrites d.
+template <bool kAcc>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b) {
+  if constexpr (kAcc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "n"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+          "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+          "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+          "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+          "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+        : "l"(a), "l"(b), "n"(0));
+  }
+}
+
+// d += A B for one k16 step: A (64 x 16) the bf16 pairs in a[4] (the
+// accumulator fragment layout), B (16 x 64) in shared memory, MN-major
+// (transposed, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+// d += A B for one k16 step: A (64 x 16) the bf16 pairs in a[4] (the
+// accumulator fragment layout), B (16 x 128) in shared memory, MN-major
+// (transposed, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+template <int kD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[kD / 2], const uint32_t* a, uint64_t b) {
+  if constexpr (kD == 64)
+    wgmma_rs_n64(o, a, b);
+  else
+    wgmma_rs_n128(o, a, b);
+}
+
+// kMasked and kBf16Scores as for flash_fwd_kernel.  Each consumer thread
+// holds rows r0 = 16 * warp + lane / 4 and r0 + 8 of its warpgroup's 64;
+// element i of a 64 x N accumulator fragment is row r0 + 8 * ((i >> 1) & 1),
+// column 8 * (i >> 2) + 2 * (lane % 4) + (i & 1).
+template <int kD, bool kMasked, bool kBf16Scores>
+__global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(const __grid_constant__ TcParams p) {
+  using L = Smem<kD>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t q_s = base, k_s = base + L::kK, v_s = base + L::kV;
+  const uint32_t q_bar = base + L::kBar;
+  const uint32_t full_bar = q_bar + 8, empty_bar = q_bar + 8 * (1 + kStages);
+
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y % p.H;
+  const int hk = h / p.rep;
+  const int q0 = (kMasked ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kRows;
+  // keys col < valid are kept; tiles from kv_end on hold no kept key
+  int valid = p.T, kv_end = p.T;
+  if (kMasked) {
+    if (p.lengths != nullptr) valid = max(0, min(p.lengths[b], p.T));
+    kv_end = p.causal ? min(valid, q0 + kRows) : valid;
+  }
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // ---- producer: the q tile, then the K/V ring ----
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, L::kQBytes);
+      for (int c = 0; c < L::kPanels; ++c)
+        tma_load(q_s + c * kRows * kPanelBytes, &p.q, q_bar, 64 * c, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(empty_bar + 8 * s, (j / kStages - 1) & 1);
+        mbar_expect_tx(full_bar + 8 * s, 2 * L::kTileBytes);
+        for (int c = 0; c < L::kPanels; ++c) {
+          const uint32_t off = s * L::kTileBytes + c * kKeys * kPanelBytes;
+          tma_load(k_s + off, &p.k, full_bar + 8 * s, 64 * c, j * kKeys, hk, b);
+          tma_load(v_s + off, &p.v, full_bar + 8 * s, 64 * c, j * kKeys, hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  const int wg = warp / 4;
+  const int r0 = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;  // this thread's query rows r0, r0 + 8
+  const int c2 = 2 * (lane % 4);
+  const uint32_t q_wg = q_s + 64 * wg * kPanelBytes;
+  mbar_wait(q_bar, 0);
+  if (!kMasked) {
+    // (q * d^-1/2).astype(q.dtype), in place on this warpgroup's rows
+#pragma unroll
+    for (int c = 0; c < L::kPanels; ++c) {
+      uint4* rows = reinterpret_cast<uint4*>(smem + c * kRows * kPanelBytes + 64 * wg * kPanelBytes);
+#pragma unroll
+      for (int i = tid % 128; i < 64 * kPanelBytes / 16; i += 128) {
+        uint4 x = rows[i];
+        uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+          w[e] = pack_bf16(__fmul_rn(f.x, p.scale), __fmul_rn(f.y, p.scale));
+        }
+        rows[i] = x;
+      }
+    }
+    // the generic-proxy writes must be visible to wgmma's async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  }
+
+  float o[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's share of the row sum
+
+#pragma unroll 1
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const int k0 = j * kKeys;
+    const uint32_t k_tile = k_s + s * L::kTileBytes, v_tile = v_s + s * L::kTileBytes;
+    mbar_wait(full_bar + 8 * s, (j / kStages) & 1);
+
+    // ---- S = Q K^T: k16 steps walk 32 bytes along a swizzle row, then
+    // the next 64-column panel ----
+    float sc[64];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint64_t qd = smem_desc(q_wg + (kk / 4) * kRows * kPanelBytes + (kk % 4) * 32, 16, 1024);
+      const uint64_t kd = smem_desc(k_tile + (kk / 4) * kKeys * kPanelBytes + (kk % 4) * 32, 16, 1024);
+      if (kk == 0)
+        wgmma_ss_n128<false>(sc, qd, kd);
+      else
+        wgmma_ss_n128<true>(sc, qd, kd);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(sc);
+
+    // ---- scores: scale (masked), bf16 rounding (kBf16Scores), masks ----
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      if (kMasked) sc[i] = __fmul_rn(sc[i], p.scale);
+      if (kBf16Scores) sc[i] = round_bf16(sc[i]);
+    }
+    if (k0 + kKeys > valid || (kMasked && p.causal && k0 + kKeys - 1 > q0 + 64 * wg)) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int col = k0 + 8 * (i >> 2) + c2 + (i & 1);
+        const int row = r0 + 8 * ((i >> 1) & 1);
+        if (col >= valid || (kMasked && p.causal && col > row)) sc[i] = -INFINITY;
+      }
+    }
+
+    // ---- online softmax over the two rows; the 4 threads of a row
+    // (lanes 4r .. 4r + 3) meet in two shuffles ----
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2], shift[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // a row with no kept key yet keeps its zeros (exp(-inf) = 0)
+      shift[r] = m_new == -INFINITY ? 0.f : m_new * kLog2e;
+      alpha[r] = ex2(fmaf(m[r], kLog2e, -shift[r]));  // 0 on the first tile
+      m[r] = m_new;
+    }
+    // p = exp(s - m) as bf16 pairs in the A-operand layout of P V; the row
+    // sum over fp32 p (masked) or over the rounded p (unmasked)
+    uint32_t pa[32];
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float e0 = ex2(fmaf(sc[i], kLog2e, -shift[r]));
+      const float e1 = ex2(fmaf(sc[i + 1], kLog2e, -shift[r]));
+      pa[i / 2] = pack_bf16(e0, e1);
+      if (kMasked) {
+        sum[r] += e0 + e1;
+      } else {
+        const float2 pr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pa[i / 2]));
+        sum[r] += pr.x + pr.y;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // ---- O += P V: k16 step kk takes keys 16 kk .. 16 kk + 15, 16 rows of
+    // the V tile (two 8-row swizzle atoms); the 64-column panels are LBO
+    // apart ----
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_pv<kD>(o, &pa[4 * kk], smem_desc(v_tile + kk * 16 * kPanelBytes, kKeys * kPanelBytes, 1024));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(o);
+    mbar_arrive(empty_bar + 8 * s);
+  }
+
+  // ---- out = o / max(l, 1e-30); a row with no key is 0 ----
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.so[0] + h * p.so[1];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    const int t = r0 + 8 * r;
+    if (t >= p.T) continue;
+    __nv_bfloat16* orow = og + t * p.so[2];
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      const int col = 8 * n + c2;
+      const float x0 = o[4 * n + 2 * r] * inv, x1 = o[4 * n + 2 * r + 1] * inv;
+      if (p.o_pairs && col + 1 < p.D) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (col < p.D) orow[col] = __float2bfloat16_rn(x0);
+        if (col + 1 < p.D) orow[col + 1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    // the 12.0 ABI of the symbol (CUDA 12.5+ runtime)
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 tensor map over (d, t, h, b) of ``ptr`` with (b, h, t) element
+// strides ``st``, read in boxes of 64 columns x ``rows`` with the 128-byte
+// swizzle; reads past D or T give zeros.  A stride of a dim of size 1 is
+// never used and may be anything, so it is replaced by a legal one.
+int make_map(CUtensorMap* map, const void* ptr, const long long* st, int D, int T, int heads, int B,
+             int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)heads, (cuuint64_t)B};
+  const long long elems[3] = {st[2], st[1], st[0]};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) strides[i] = dims[i + 1] == 1 ? 16 : (cuuint64_t)elems[i] * 2;
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int kD, bool kMasked, bool kBf16Scores>
+int launch(const Params& p, int B, cudaStream_t stream) {
+  TcParams t;
+  const int kv_heads = p.H / p.rep;
+  int err = make_map(&t.q, p.q, p.sq, p.D, p.T, p.H, B, kRows);
+  if (err == 0) err = make_map(&t.k, p.k, p.sk, p.D, p.T, kv_heads, B, kKeys);
+  if (err == 0) err = make_map(&t.v, p.v, p.sv, p.D, p.T, kv_heads, B, kKeys);
+  if (err != 0) return err;
+  t.o = p.o;
+  for (int i = 0; i < 3; ++i) t.so[i] = p.so[i];
+  t.lengths = p.lengths;
+  t.H = p.H;
+  t.T = p.T;
+  t.D = p.D;
+  t.rep = p.rep;
+  t.causal = p.causal;
+  t.o_pairs = p.D % 2 == 0 && p.so[0] % 2 == 0 && p.so[1] % 2 == 0 && p.so[2] % 2 == 0 &&
+              reinterpret_cast<uintptr_t>(p.o) % 4 == 0;
+  t.scale = p.scale;
+  const int smem = Smem<kD>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(flash_tc_kernel<kD, kMasked, kBf16Scores>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((p.T + kRows - 1) / kRows, B * p.H);
+  flash_tc_kernel<kD, kMasked, kBf16Scores><<<grid, kThreads, smem, stream>>>(t);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 template <bool kMasked, bool kBf16Scores = false>
 int launch_typed(const Params& p, int B, int dtype, cudaStream_t s) {
   if (p.D < 1 || p.D > 128) return (int)cudaErrorInvalidValue;
   const bool narrow = p.D <= 64;
   if (dtype == 0)
-    return narrow ? launch<float, 4, kMasked, kBf16Scores>(p, B, s)
-                  : launch<float, 8, kMasked, kBf16Scores>(p, B, s);
+    return narrow ? launch_fp32<4, kMasked, kBf16Scores>(p, B, s) : launch_fp32<8, kMasked, kBf16Scores>(p, B, s);
   if (dtype == 1)
-    return narrow ? launch<__nv_bfloat16, 4, kMasked, kBf16Scores>(p, B, s)
-                  : launch<__nv_bfloat16, 8, kMasked, kBf16Scores>(p, B, s);
+    return narrow ? tc::launch<64, kMasked, kBf16Scores>(p, B, s) : tc::launch<128, kMasked, kBf16Scores>(p, B, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,7 +30,10 @@ Off the dispatch, for the attention bench (``scripts/bench_attn.py``):
   ``packed_attention_plain``).
 
 Every kernel takes any T (the ragged edge is masked in the kernel), so the
-JAX package's q/kv block sizes have no counterpart here.
+JAX package's q/kv block sizes have no counterpart here.  bf16 runs on the
+tensor cores and reads q, k and v through TMA, which needs 16-byte
+aligned bases and b, h and t strides in multiples of 8 elements
+(``check_tma_layout``); fp32 runs on the CUDA cores and takes any strides.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from . import _cuda
 
 __all__ = ["flash_attention", "fast_flash_attention", "flash_attention_packed",
            "bounded_attention_plain", "fast_attention_plain", "flash_attention_plain",
-           "packed_attention_plain", "launch_counts"]
+           "packed_attention_plain", "check_tma_layout", "launch_counts"]
 
 #: kernel launches since the last reset, counted where the kernel launches
 launch_counts: dict[str, int] = {"flash_attention": 0, "flash_masked": 0, "flash_fast": 0,
@@ -147,10 +150,30 @@ def flash_attention_plain(
     return out
 
 
+#: TMA's alignment of a tensor's base address and of its strides, in bytes
+_TMA_ALIGN = 16
+
+
+def check_tma_layout(name: str, shape, strides, data_ptr: int, element_size: int) -> None:
+    """Raise ValueError unless TMA can read the (B, H, T, d) tensor ``name``
+    as the bf16 kernel maps it: a 16-byte aligned base and b, h and t
+    strides that are multiples of 16 bytes (8 bf16 elements).  The stride
+    of a dim of size 1 is never used and is not checked.  A pure function
+    of the layout: it never copies and never reroutes."""
+    if data_ptr % _TMA_ALIGN:
+        raise ValueError(f"flash attention kernel: {name} starts at {data_ptr:#x}, not on a "
+                         f"{_TMA_ALIGN}-byte boundary, so TMA cannot read it")
+    for dim, stride, size in zip("bht", strides[:3], shape[:3]):
+        if size > 1 and stride * element_size % _TMA_ALIGN:
+            raise ValueError(f"flash attention kernel: {name}'s {dim} stride {stride} is not a multiple "
+                             f"of {_TMA_ALIGN // element_size} elements, so TMA cannot read it")
+
+
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, gqa: bool) -> None:
     """The kernels' common checks: CUDA, fp32/bf16, (B, H, T, d) q with k
     and v of q's shape (or, with ``gqa``, of H / rep heads), unit stride on
-    the head dim, a head dim the kernel takes."""
+    the head dim, a head dim the kernel takes, and for bf16 the layout TMA
+    reads."""
     _cuda.check_cuda("flash attention", q=q, k=k, v=v)
     kv_heads = k.shape[1] if gqa and k.dim() == 4 else q.shape[1]
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -167,6 +190,8 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, gqa: bool) -> 
             raise ValueError(f"flash attention kernel needs a unit stride on the head dim of {name}")
         if x.dtype != q.dtype or x.device != q.device:
             raise ValueError("flash attention kernel: q, k, v differ in dtype or device")
+        if x.dtype == torch.bfloat16:
+            check_tma_layout(name, x.shape, x.stride(), x.data_ptr(), x.element_size())
     b, h, t, d = q.shape
     max_d = _cuda.function(*_MAX_HEAD_DIM)()
     if t < 1 or b * h < 1 or not 1 <= d <= max_d:

@@ -14,9 +14,12 @@ Phases (any failure exits non-zero):
    call that computes the same function (a yardstick the port never
    calls): ``scaled_dot_product_attention`` for the attention kernels,
    ``torch._int_mm`` plus the elementwise quant passes for the int8 ones.
-   Two mutants of the masked flash kernel, built from patched copies of
-   its source under ``_build/mutants`` (one ignores the key lengths, one
-   ignores ``causal``), must fail the same check.  The bench-only fast
+   The flash kernels run bf16 on the tensor cores and fp32 on the CUDA
+   cores: each fp32 edge case has a bf16 twin, and the SASS of every bf16
+   instantiation must hold ``HGMMA``.  Two mutants of the masked flash
+   kernel, built from patched copies of its source under
+   ``_build/mutants`` (one ignores the key lengths, one ignores
+   ``causal``), must fail the same check.  The bench-only fast
    kernel with bf16 scores must differ from itself with fp32 scores, and
    the packed wrapper must refuse d != 64 and an odd head count.
 3. A small FmriEncoder trained on the card and on the CPU from the same
@@ -73,6 +76,7 @@ import ctypes
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -206,7 +210,7 @@ def build_kernels() -> dict[str, Path]:
     log(f"built {sorted(libs)} and mutants {sorted(builds)} in {time.time() - t0:.1f} s")
     for name, text in _cuda.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(word in line for word in ("registers", "spill", "error", "warning")):
                 log(f"  nvcc {name}: {line.strip()}")
     for name, (text, returncode) in mutant_logs.items():
         if returncode != 0:
@@ -214,14 +218,29 @@ def build_kernels() -> dict[str, Path]:
     return {name: library for name, (library, _) in builds.items()}
 
 
-def qkv(shape, dtype, strided: bool, gen: torch.Generator):
+def check_sass(library: Path) -> None:
+    """Every bf16 instantiation of the flash kernel runs its products on
+    the tensor cores: each ``flash_tc_kernel`` in the SASS of the built
+    library holds HGMMA instructions."""
+    cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)], check=True, capture_output=True,
+                          text=True).stdout
+    functions = [f.split(None, 1) for f in re.split(r"\n\s*Function : ", sass)[1:]]
+    hgmma = {tuple(int(x) for x in re.findall(r"L[ib](\d+)E", name.split("flash_tc_kernel", 1)[1])[:3]):
+             body.count("HGMMA") for name, body in functions if "flash_tc_kernel" in name}
+    log(f"SASS of {library.name}: HGMMA per bf16 instantiation (head dim, masked, bf16 scores) {hgmma}")
+    if len(hgmma) != 6 or not all(hgmma.values()):
+        raise SystemExit("the bf16 flash instantiations do not all run wgmma (HGMMA)")
+
+
+def qkv(shape, dtype, strided: bool, gen: torch.Generator, device="cuda"):
     """q, k, v on the card; ``strided`` takes them as the trunk does, as
     head-split views of one fused (B, T, 3, H, Dh) projection."""
     b, h, t, dh = shape
     if strided:
-        fused = torch.randn((b, t, 3, h, dh), generator=gen, device="cuda").to(dtype)
+        fused = torch.randn((b, t, 3, h, dh), generator=gen, device=device).to(dtype)
         return fused.permute(2, 0, 3, 1, 4).unbind(0)
-    return [torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3)]
+    return [torch.randn(shape, generator=gen, device=device).to(dtype) for _ in range(3)]
 
 
 def check_attention(peaks: dict[str, float]) -> dict:
@@ -421,8 +440,10 @@ def check_int8_mlp(peaks: dict[str, float]) -> dict:
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
 
 
-# one ViT-G window batch of 4: (B, H, T, d) of its attention
+# one ViT-G window batch of 4: (B, H, T, d) of its attention, and its
+# operations (q kᵀ and P V over every pair)
 VITG_ATTN = (4, 22, 8192, 64)
+VITG_FLOPS = 4 * VITG_ATTN[0] * VITG_ATTN[1] * VITG_ATTN[2] ** 2 * VITG_ATTN[3]
 # relative L2 limits of the attention kernel against its plain version.  At
 # 8192 standard-normal keys a row's softmax spreads over ~T/e keys, so a
 # dropped or doubled 64-key tile moves the output by ~9 % in relative L2;
@@ -448,32 +469,40 @@ def flash_case(label: str, out: torch.Tensor, ref: torch.Tensor, dtype: torch.dt
     return ok, err
 
 
+def rates(flops: float, kernel_ms: float, library_ms: float, bound_ms: float) -> str:
+    """The kernel's and the library call's TFLOP/s beside the bound's."""
+    return (f"kernel {flops / kernel_ms / 1e9:.1f} TFLOP/s, sdpa {flops / library_ms / 1e9:.1f}, "
+            f"bound {flops / bound_ms / 1e9:.1f}")
+
+
 def time_bench_shape(peaks, kernel, plain) -> tuple[float, float, float, float, str]:
     """Kernel, plain and ``scaled_dot_product_attention`` times at the
     bench's (4, 22, 8192, 64) bf16 strided shape, and the bound."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     b, h, t, d = VITG_ATTN
     q, k, v = qkv(VITG_ATTN, torch.bfloat16, True, gen)
-    kernel_ms = time_ms(lambda: kernel(q, k, v), iters=5, warmup=1)
+    kernel_ms = time_ms(lambda: kernel(q, k, v))
     plain_ms = time_ms(lambda: plain(q, k, v), iters=2, warmup=1)
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), iters=10)
-    bound_ms, bound_by = bound(4 * b * h * t * t * d, 4 * b * h * t * d * 2, peaks["bfloat16"], peaks)
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    bound_ms, bound_by = bound(VITG_FLOPS, 4 * b * h * t * d * 2, peaks["bfloat16"], peaks)
     return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
 
 
 def check_flash(peaks: dict[str, float]) -> dict:
     """Kernel A through the backbone's wrapper against its plain version
     (computed in query chunks): max-abs within the port's tolerance and
-    1e-2 max|ref|, and relative L2 within ``FLASH_REL``."""
+    1e-2 max|ref|, and relative L2 within ``FLASH_REL``.  Each fp32 edge
+    case has a bf16 twin (fp32 runs the CUDA-core loop, bf16 the
+    tensor-core one); d = 96 runs the bf16 loop at 128, zero-padded."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     main_err = None
     cases = [(VITG_ATTN, torch.bfloat16, True, 1.0),
              ((1, 22, 8192, 64), torch.float32, True, 1.0),
-             ((2, 3, 1024, 64), torch.float32, False, 1.0),
-             ((1, 2, 1, 64), torch.float32, False, 1.0),
+             *((shape, dtype, strided, scale) for dtype in (torch.float32, torch.bfloat16)
+               for shape, strided, scale in (((2, 3, 1024, 64), False, 1.0), ((1, 2, 1, 64), False, 1.0),
+                                             ((1, 2, 1000, 64), True, 1.0), ((1, 2, 1024, 64), False, 30.0))),
              ((1, 2, 37, 64), torch.bfloat16, False, 1.0),
-             ((1, 2, 1000, 64), torch.float32, True, 1.0),
-             ((1, 2, 1024, 64), torch.float32, False, 30.0)]
+             ((2, 3, 1000, 96), torch.bfloat16, True, 1.0)]
     for shape, dtype, strided, scale in cases:
         q, k, v = qkv(shape, torch.float32, strided, gen)
         q, k, v = (q * scale).to(dtype), (k * scale).to(dtype), v.to(dtype)
@@ -492,7 +521,8 @@ def check_flash(peaks: dict[str, float]) -> dict:
     b, h, t, d = VITG_ATTN
     log(f"flash_attention {VITG_ATTN} bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({4 * b * h * t * t * d / 1e12:.3f} TFLOP, {4 * b * h * t * d * 2 / 1e6:.1f} MB)")
+        f"({VITG_FLOPS / 1e12:.3f} TFLOP, {4 * b * h * t * d * 2 / 1e6:.1f} MB; "
+        f"{rates(VITG_FLOPS, kernel_ms, library_ms, bound_ms)})")
     return kernel_record("flash_attention", "flash_attention.cu",
                          "algonauts2025_tpu/ops/flash_attention.py:212 (_bounded_kernel)",
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
@@ -501,15 +531,20 @@ def check_flash(peaks: dict[str, float]) -> dict:
 # one Llama-3.2-3B batch forward's attention: (B, H, T, d) and its kv heads
 LLAMA_ATTN, LLAMA_KV = (8, 24, 1024, 128), 8
 # (shape, kv heads, dtype, causal, key lengths): the main path's, then
-# padded rows (a length 0 among them), fp32, non-causal d = 128, ragged T
+# padded rows (a length 0 among them), no lengths, non-causal d = 128,
+# T = 1 and ragged T, each fp32 case with its bf16 twin; d = 96 (the bf16
+# loop at 128, zero-padded) and three query heads a kv head
 MASKED_CASES = [
     (LLAMA_ATTN, LLAMA_KV, torch.bfloat16, True, (1024,) * 8),
     (LLAMA_ATTN, LLAMA_KV, torch.bfloat16, True, (1024, 700, 256, 1, 0, 1024, 512, 999)),
-    ((1, 24, 1024, 128), LLAMA_KV, torch.float32, True, None),
-    ((2, 4, 256, 128), 4, torch.float32, False, (0, 256)),
-    ((2, 4, 1, 64), 2, torch.float32, True, (1, 0)),
+    *((shape, kv, dtype, causal, lengths) for dtype in (torch.float32, torch.bfloat16)
+      for shape, kv, causal, lengths in (((1, 24, 1024, 128), LLAMA_KV, True, None),
+                                         ((2, 4, 256, 128), 4, False, (0, 256)),
+                                         ((2, 4, 1, 64), 2, True, (1, 0)),
+                                         ((2, 4, 300, 128), 2, True, (300, 129)))),
     ((2, 4, 37, 64), 2, torch.bfloat16, True, (37, 20)),
-    ((2, 4, 300, 128), 2, torch.float32, True, (300, 129)),
+    ((2, 4, 200, 96), 2, torch.bfloat16, True, (200, 77)),
+    ((2, 6, 300, 128), 2, torch.bfloat16, True, (300, 150)),
 ]
 # limits of the masked kernel against its plain version, set from the
 # first readings on an H100 (PERF.md): max-abs within MASKED_TOL and
@@ -527,11 +562,11 @@ MUTANTS = {
 }
 
 
-def masked_qkv(shape, kv_heads, dtype, gen):
+def masked_qkv(shape, kv_heads, dtype, gen, device="cuda"):
     """q (B, H, T, d) and k, v (B, kv_heads, T, d) as the Llama backbone
     hands them over: head-split views of (B, T, heads, d) projections."""
     b, h, t, d = shape
-    return [torch.randn((b, t, n, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    return [torch.randn((b, t, n, d), generator=gen, device=device).to(dtype).transpose(1, 2)
             for n in (h, kv_heads, kv_heads)]
 
 
@@ -622,22 +657,22 @@ def check_flash_masked(peaks: dict[str, float], mutants: dict[str, Path]) -> dic
     bound_ms, bound_by = bound(flops, nbytes, peaks["bfloat16"], peaks)
     log(f"flash_masked {LLAMA_ATTN} kv {LLAMA_KV} bf16 causal: kernel {kernel_ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, {flops / kernel_ms / 1e9:.2f} TFLOP/s)")
+        f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; {rates(flops, kernel_ms, library_ms, bound_ms)})")
     return kernel_record("flash_masked", "flash_attention.cu",
                          "algonauts2025_tpu/ops/flash_attention.py:26 (_flash_kernel)",
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
 
 
 # (shape, dtype, strided, score dtype) of check_fast: the bench's shape with
-# both score dtypes, fp32, T = 1 and 37, head dims 32 and 128
+# both score dtypes, fp32, T = 1 and 37, head dims 32 and 128, each fp32
+# edge case with its bf16 twin
 FAST_CASES = [
     (VITG_ATTN, torch.bfloat16, True, torch.float32),
     (VITG_ATTN, torch.bfloat16, True, torch.bfloat16),
     ((1, 22, 8192, 64), torch.float32, True, torch.float32),
-    ((1, 2, 1, 64), torch.float32, False, torch.float32),
+    *((shape, dtype, strided, torch.float32) for dtype in (torch.float32, torch.bfloat16)
+      for shape, strided in (((1, 2, 1, 64), False), ((2, 3, 1024, 32), True), ((2, 3, 1024, 128), False))),
     ((1, 2, 37, 64), torch.bfloat16, False, torch.bfloat16),
-    ((2, 3, 1024, 32), torch.float32, True, torch.float32),
-    ((2, 3, 1024, 128), torch.float32, False, torch.float32),
     ((2, 3, 1000, 128), torch.bfloat16, True, torch.bfloat16),
 ]
 
@@ -676,22 +711,24 @@ def check_fast(peaks: dict[str, float]) -> dict:
     kernel_ms, plain_ms, library_ms, bound_ms, bound_by = time_bench_shape(
         peaks, flash.fast_flash_attention, flash.fast_attention_plain)
     q, k, v = qkv(VITG_ATTN, torch.bfloat16, True, gen)
-    b16_ms = time_ms(lambda: flash.fast_flash_attention(q, k, v, torch.bfloat16), iters=5, warmup=1)
-    log(f"flash_fast {VITG_ATTN} bf16: kernel {kernel_ms:.4f} ms (bf16 scores {b16_ms:.4f} ms), "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    b16_ms = time_ms(lambda: flash.fast_flash_attention(q, k, v, torch.bfloat16))
+    log(f"flash_fast {VITG_ATTN} bf16: kernel {kernel_ms:.4f} ms (bf16 scores {b16_ms:.4f} ms, "
+        f"{VITG_FLOPS / b16_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms; {rates(VITG_FLOPS, kernel_ms, library_ms, bound_ms)}")
     return kernel_record("flash_fast", "flash_attention.cu",
                          "algonauts2025_tpu/ops/flash_attention.py:105 (_fast_kernel)",
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
 
 
 # (shape, dtype, strided) of check_packed: the bench's shape, fp32, T = 1
-# and 37, and a head count the JAX version's block rule would refuse
+# and 37, and a head count the JAX version's block rule would refuse, each
+# fp32 edge case with its bf16 twin
 PACKED_CASES = [
     (VITG_ATTN, torch.bfloat16, True),
     ((1, 22, 8192, 64), torch.float32, True),
-    ((1, 2, 1, 64), torch.float32, False),
+    *((shape, dtype, strided) for dtype in (torch.float32, torch.bfloat16)
+      for shape, strided in (((1, 2, 1, 64), False), ((3, 6, 1000, 64), True))),
     ((1, 2, 37, 64), torch.bfloat16, False),
-    ((3, 6, 1000, 64), torch.float32, True),
 ]
 
 
@@ -724,7 +761,7 @@ def check_packed(peaks: dict[str, float]) -> dict:
     kernel_ms, plain_ms, library_ms, bound_ms, bound_by = time_bench_shape(
         peaks, flash.flash_attention_packed, flash.packed_attention_plain)
     log(f"flash_packed {VITG_ATTN} bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms")
+        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms; {rates(VITG_FLOPS, kernel_ms, library_ms, bound_ms)}")
     return kernel_record("flash_packed", "flash_attention.cu",
                          "algonauts2025_tpu/ops/flash_attention.py:424 (_flash_kernel_packed)",
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
@@ -1336,6 +1373,7 @@ def main() -> None:
     peaks = peaks_for(kind)
     torch.manual_seed(SEED)
     mutants = build_kernels()
+    check_sass(_cuda.build("flash_attention"))
     kernels = [check_attention(peaks), check_flash(peaks), check_flash_masked(peaks, mutants),
                check_fast(peaks), check_packed(peaks), check_w8a8(peaks), check_int8_mlp(peaks)]
     check_small_against_cpu()

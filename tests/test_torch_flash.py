@@ -4,16 +4,23 @@ package's, on the CPU.
 On CPU tensors ``flash_attention`` runs the kernels' plain versions; the
 JAX ``_bounded_kernel`` and ``_flash_kernel`` run in interpret mode, as
 tests/test_ops.py runs them.  The CUDA kernels are held against the plain
-versions on the card by chip_smoke.py.
+versions on the card by chip_smoke.py; what of them the CPU can check is
+here too: the TMA layout contract of the bf16 kernel against the layouts
+of its callers, and the source lines chip_smoke.py's mutants patch.
 """
+
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from algonauts2025_tpu.ops.attention import dot_product_attention as jax_dpa
 from algonauts2025_tpu.ops.flash_attention import flash_attention as jax_flash
+from algonauts2025_tpu_torch.models.backbones import llama, vjepa2
+from algonauts2025_tpu_torch.ops import _cuda
 from algonauts2025_tpu_torch.ops import flash_attention as tf
 from algonauts2025_tpu_torch.ops.attention import dot_product_attention
 
@@ -158,3 +165,91 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="not a CUDA device"):
         tf._flash_cuda(q, q, q)
     assert tf.launch_counts == before
+
+
+def _captured(module, target: str, run) -> tuple:
+    """The (q, k, v) that ``run()`` hands to ``module.target``."""
+    seen = []
+
+    def capture(q, k, v, *rest):
+        seen.append((q, k, v))
+        return q
+
+    with torch.no_grad(), mock.patch.object(module, target, capture):
+        run()
+    return seen[0]
+
+
+def _vitg_qkv():
+    """One ViT-G attention at its full width (22 heads of 64) over 16 tokens."""
+    attn = vjepa2.VJEPA2Attention(vjepa2.VJEPA2_VITG, device="cpu")
+    x = torch.randn((2, 16, 1408)).to(vjepa2.VJEPA2_VITG.dtype)
+    rope = (torch.ones((16, 64)), torch.zeros((16, 64)))
+    return _captured(vjepa2, "_attention", lambda: attn(x, rope))
+
+
+def _llama_qkv():
+    """One Llama-3.2-3B attention at its full width (24 query heads over 8
+    kv heads of 128) over 16 tokens."""
+    cfg = llama.LLAMA_3P2_3B
+    attn = llama.LlamaAttention(cfg, device="cpu")
+    x = torch.randn((2, 16, cfg.hidden_size)).to(cfg.dtype)
+    cos, sin = torch.ones((2, 16, cfg.head_dim)), torch.zeros((2, 16, cfg.head_dim))
+    return _captured(llama, "_decoder_attention", lambda: attn(x, cos, sin, None, torch.tensor([16, 9])))
+
+
+def _chip_smoke_qkv(shape, strided, scale=1.0):
+    """chip_smoke.qkv as check_flash / check_fast / check_packed use it."""
+    q, k, v = chip_smoke.qkv(shape, torch.float32, strided, torch.Generator().manual_seed(0), device="cpu")
+    return (q * scale).to(torch.bfloat16), (k * scale).to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+#: the bf16 callers of the flash kernels, each giving (q, k, v) as it hands
+#: them over, at full width where the caller is a model
+CALLERS = {
+    "vitg": _vitg_qkv,
+    "llama": _llama_qkv,
+    "bench": lambda: [x[:1, :2] for x in (torch.randn((4, 22, 64, 64)).to(torch.bfloat16) for _ in range(3))],
+    "chip_smoke_qkv_strided": lambda: _chip_smoke_qkv((4, 22, 40, 64), True),
+    "chip_smoke_qkv_strided_d96": lambda: _chip_smoke_qkv((2, 3, 40, 96), True),
+    "chip_smoke_qkv_x30": lambda: _chip_smoke_qkv((1, 2, 40, 64), False, 30.0),
+    "chip_smoke_qkv_d32": lambda: chip_smoke.qkv((2, 3, 40, 32), torch.bfloat16, False,
+                                                 torch.Generator().manual_seed(0), device="cpu"),
+    "chip_smoke_masked_qkv": lambda: chip_smoke.masked_qkv((8, 24, 40, 128), 8, torch.bfloat16,
+                                                           torch.Generator().manual_seed(0), device="cpu"),
+    "chip_smoke_masked_qkv_d96": lambda: chip_smoke.masked_qkv((2, 6, 40, 96), 2, torch.bfloat16,
+                                                               torch.Generator().manual_seed(0), device="cpu"),
+}
+
+
+@pytest.mark.parametrize("caller", sorted(CALLERS))
+def test_tma_layout_takes_every_caller(caller):
+    """Every bf16 caller's q, k and v meet the layout that TMA reads."""
+    for name, x in zip("qkv", CALLERS[caller]()):
+        assert x.dtype == torch.bfloat16 and x.dim() == 4 and x.stride(-1) == 1
+        tf.check_tma_layout(name, x.shape, x.stride(), x.data_ptr(), x.element_size())
+
+
+@pytest.mark.parametrize("strides,offset,match", [
+    ((3 * 16 * 68, 16 * 68, 68, 1), 0, "k's t stride 68 is not a multiple of 8 elements"),
+    ((4096, 1028, 64, 1), 0, "k's h stride 1028"),
+    ((3076, 1024, 64, 1), 0, "k's b stride 3076"),
+    ((3 * 1024, 1024, 64, 1), 4, "k starts at .* not on a 16-byte boundary"),
+])
+def test_tma_layout_refuses_unaligned_views(strides, offset, match):
+    x = torch.zeros(8192, dtype=torch.bfloat16).as_strided((2, 3, 16, 64), strides, offset)
+    with pytest.raises(ValueError, match=match):
+        tf.check_tma_layout("k", x.shape, x.stride(), x.data_ptr(), x.element_size())
+
+
+def test_tma_layout_ignores_strides_of_size_one_dims():
+    x = torch.zeros(8192, dtype=torch.bfloat16).as_strided((1, 1, 16, 64), (5, 3, 64, 1))
+    tf.check_tma_layout("q", x.shape, x.stride(), x.data_ptr(), x.element_size())
+
+
+@pytest.mark.parametrize("mutant", sorted(chip_smoke.MUTANTS))
+def test_mutant_line_occurs_once_in_the_source(mutant):
+    """chip_smoke.py builds each mutant by replacing one line of the flash
+    source; the line must be there exactly once, or the build fails."""
+    line, _ = chip_smoke.MUTANTS[mutant]
+    assert (_cuda.CSRC / "flash_attention.cu").read_text().count(line) == 1
