@@ -1,7 +1,9 @@
-// Shared core of the w8a8 kernels (w8a8.cu, int8_mlp.cu), sm_90a.
+// __dp4a core of the w8a8 kernel (w8a8.cu, kernel row 6) on the CUDA cores,
+// sm_90a.  The fused MLP (int8_mlp.cu) runs the tensor-core core of
+// int8_wgmma.cuh instead.
 //
 // out[m, n] = epilogue(sum_k A[m, k] * W[k, n]) with A quantized to int8 on
-// its way into shared memory (or already int8), W int8 (K, N) row-major,
+// its way into shared memory, W int8 (K, N) row-major,
 // and an int32 accumulator that never leaves registers.  int32 sums are
 // exact in any order, so the result does not depend on the tiling.
 //
@@ -41,11 +43,11 @@ constexpr int kPad = 4;           // shared-memory row padding, in words
 constexpr int kThreads = 256;     // 16 x 16 threads, 8 x 8 outputs each
 
 struct Args {
-  const void* a;         // (M, K) float32, bfloat16 or int8, row-major
+  const void* a;         // (M, K) float32 or bfloat16, row-major
   const int8_t* w;       // (K, N) int8, row-major
   const float* w_scale;  // (N,)
   const float* bias;     // (N,) or null
-  const float* scales;   // device scalars: [0] scale of A, [1] requant / second scale
+  const float* scales;   // device scalar: the scale of A
   void* out;             // (M, N) row-major
   int M, N, K;
 };
@@ -68,14 +70,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// A element (m, k) as int8 in an int: quantized by scales[0] for float input
+// A element (m, k) quantized by scales[0], as int8 in an int
 template <typename TA>
 __device__ __forceinline__ int load_a(const Args& g, int m, int k, float sa) {
   return quantize(to_f32(static_cast<const TA*>(g.a)[(long long)m * g.K + k]), sa);
-}
-template <>
-__device__ __forceinline__ int load_a<int8_t>(const Args& g, int m, int k, float) {
-  return static_cast<const int8_t*>(g.a)[(long long)m * g.K + k];
 }
 
 __device__ __forceinline__ int pack4(int b0, int b1, int b2, int b3) {
@@ -87,11 +85,11 @@ __device__ __forceinline__ float dequant(const Args& g, int acc, float scale, in
   return __fmaf_rn(__int2float_rn(acc), __fmul_rn(scale, g.w_scale[n]), g.bias ? g.bias[n] : 0.f);
 }
 
-// Epilogue: dequantize by scales[S] and store in TO.
-template <typename TO, int S>
+// Epilogue: dequantize by scales[0] and store in TO.
+template <typename TO>
 struct StoreDequant {
   __device__ __forceinline__ static void store(const Args& g, int m, int n, int acc) {
-    static_cast<TO*>(g.out)[(long long)m * g.N + n] = from_f32<TO>(dequant(g, acc, g.scales[S], n));
+    static_cast<TO*>(g.out)[(long long)m * g.N + n] = from_f32<TO>(dequant(g, acc, g.scales[0], n));
   }
 };
 

@@ -10,25 +10,33 @@
 // matrices (8.65 MB each at ViT-G) in VMEM next to a (256, 1408) int32
 // accumulator that lived across the F chunks.  On an H100 a 64-row slice of
 // that accumulator alone is 360 KB, above the 227 KB of shared memory.  So
-// the MLP is two launches of the GEMM core in int8_gemm.cuh:
-//   1. fc1 with an epilogue that dequantizes, adds b1, applies the gelu and
-//      requantizes by h_scale, writing int8 (M, F) to a scratch buffer the
-//      wrapper allocates (201 MB at M = 32768, F = 6144);
-//   2. fc2 over that int8 scratch, dequantized by h_scale * w2_scale + b2.
+// the MLP is three launches, two of them on the tensor-core GEMM core of
+// int8_wgmma.cuh (wgmma s8.s8 -> s32, TMA, a ring of stages on mbarriers):
+//   1. quantize x by sx into an int8 (M, K) scratch (0.14 GB of traffic at
+//      ViT-G, ~0.05 ms): TMA then feeds fc1 from int8 rows, half the bytes
+//      of bf16 ones, and the conversion leaves fc1's consumer warps;
+//   2. fc1 with an epilogue that dequantizes, adds b1, applies the gelu and
+//      requantizes by h_scale, writing int8 (M, F) to a second scratch (201
+//      MB at M = 32768, F = 6144);
+//   3. fc2 over that int8 scratch, dequantized by h_scale * w2_scale + b2.
+// The weights come K-major, as (F, K) and (K, F) int8 copies of the JAX
+// layout's (K, F) and (F, K): wgmma reads an 8-bit B operand only K-major.
 // The int32 sums and the fp32 hidden activations never reach device memory;
 // the int8 hidden state does, once written and once read (0.4 GB, ~0.12 ms
-// at 3.35 TB/s, against ~0.57 ms of int8 tensor-core work at the bound).
-// The gelu uses expf (not __expf) and _rn intrinsics in the order of the
-// plain version; the remaining differences from PyTorch's exp can flip rare
-// int8 roundings of the hidden state.
+// at 3.35 TB/s).  The gelu uses expf (not __expf) and _rn intrinsics in the
+// order of the plain version; the remaining differences from PyTorch's exp
+// can flip rare int8 roundings of the hidden state.  Both scales arrive
+// NaN-poisoned together from the wrapper.
 //
 // What bounds it on an H100: 2 * M * (K*F + F*K) = 1.13 TOP at ViT-G with a
-// window batch of 4, i.e. operations (0.57 ms at 1979 TOP/s).  This first
-// version runs on the CUDA cores with __dp4a.
+// window batch of 4, i.e. operations (0.57 ms at 1979 TOP/s).  The gelu
+// epilogue (a true division and an expf for each of the 201 M hidden
+// values) runs on the CUDA cores of the consumer warps; with two blocks an
+// SM it overlaps the other block's products.
 
 #include <math.h>
 
-#include "int8_gemm.cuh"
+#include "int8_wgmma.cuh"
 
 namespace {
 
@@ -50,44 +58,64 @@ __device__ __forceinline__ float gelu_as(float x) {
 
 // fc1 epilogue: dequant by scales[0] (sx), + b1, gelu, requant by scales[1] (sh)
 struct StoreGeluQuant {
-  __device__ __forceinline__ static void store(const i8gemm::Args& g, int m, int n, int acc) {
-    const float h = gelu_as(i8gemm::dequant(g, acc, g.scales[0], n));
-    static_cast<int8_t*>(g.out)[(long long)m * g.N + n] =
-        static_cast<int8_t>(i8gemm::quantize(h, g.scales[1]));
+  float sx, sh;
+  __device__ explicit StoreGeluQuant(const float* scales) : sx(scales[0]), sh(scales[1]) {}
+  __device__ __forceinline__ void store(void* out, int N, int m, int n, int acc0, int acc1, float2 ws,
+                                        float2 bias) const {
+    const float h0 = gelu_as(i8wg::dequant(acc0, sx, ws.x, bias.x));
+    const float h1 = gelu_as(i8wg::dequant(acc1, sx, ws.y, bias.y));
+    const char2 q = make_char2(static_cast<signed char>(i8wg::quantize(h0, sh)),
+                               static_cast<signed char>(i8wg::quantize(h1, sh)));
+    *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + (long long)m * N + n) = q;
   }
 };
 
-template <typename TA>
-int fc1(const i8gemm::Args& g, cudaStream_t s) {
-  return i8gemm::launch<TA, StoreGeluQuant>(g, s);
-}
+// fc2 epilogue: dequant by scales[1] (sh), + b2, in TO
+template <typename TO>
+struct StoreDequant {
+  float sh;
+  __device__ explicit StoreDequant(const float* scales) : sh(scales[1]) {}
+  __device__ __forceinline__ void store(void* out, int N, int m, int n, int acc0, int acc1, float2 ws,
+                                        float2 bias) const {
+    const float y0 = i8wg::dequant(acc0, sh, ws.x, bias.x);
+    const float y1 = i8wg::dequant(acc1, sh, ws.y, bias.y);
+    TO* dst = static_cast<TO*>(out) + (long long)m * N + n;
+    if constexpr (sizeof(TO) == 4)
+      *reinterpret_cast<float2*>(dst) = make_float2(y0, y1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(y0, y1);
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
-// out (M, K) = fc2(requant(gelu(fc1(quant(x, sx)))), sh).  scales: device
-// pointer to {sx, sh} (validated / NaN-poisoned together by the caller).
-// h: int8 (M, F) scratch.  x_dtype / out_dtype: 0 = float32, 1 = bfloat16.
-// Returns the first non-zero cudaGetLastError() of the two launches.
-int int8_mlp_forward(const void* x, int x_dtype, const int8_t* w1_q, const float* w1_scale,
-                     const float* b1, const int8_t* w2_q, const float* w2_scale,
-                     const float* b2, const float* scales, int8_t* h, void* out,
+// out (M, K) = fc2(requant(gelu(fc1(quant(x, sx)))), sh).  w1_t (F, K) and
+// w2_t (K, F): the int8 weights K-major.  scales: device pointer to {sx,
+// sh} (validated / NaN-poisoned together by the caller).  xq: int8 (M, K)
+// and h: int8 (M, F) scratch.  x_dtype / out_dtype: 0 = float32, 1 =
+// bfloat16.  K and F multiples of 128.  Returns the first non-zero
+// cudaGetLastError() of the three launches.
+int int8_mlp_forward(const void* x, int x_dtype, const int8_t* w1_t, const float* w1_scale,
+                     const float* b1, const int8_t* w2_t, const float* w2_scale,
+                     const float* b2, const float* scales, int8_t* xq, int8_t* h, void* out,
                      int out_dtype, int M, int K, int F, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const i8gemm::Args g1{x, w1_q, w1_scale, b1, scales, h, M, F, K};
+  const long long n = (long long)M * K;
   int err;
-  if (x_dtype == 0) {
-    err = fc1<float>(g1, s);
-  } else if (x_dtype == 1) {
-    err = fc1<__nv_bfloat16>(g1, s);
-  } else {
+  if (x_dtype == 0)
+    err = i8wg::quantize_rows<float>(x, xq, scales, n, s);
+  else if (x_dtype == 1)
+    err = i8wg::quantize_rows<__nv_bfloat16>(x, xq, scales, n, s);
+  else
     return static_cast<int>(cudaErrorInvalidValue);
-  }
   if (err != 0) return err;
-  const i8gemm::Args g2{h, w2_q, w2_scale, b2, scales, out, M, K, F};
-  if (out_dtype == 0) return i8gemm::launch<int8_t, i8gemm::StoreDequant<float, 1>>(g2, s);
-  if (out_dtype == 1) return i8gemm::launch<int8_t, i8gemm::StoreDequant<__nv_bfloat16, 1>>(g2, s);
+  err = i8wg::gemm<StoreGeluQuant>(xq, w1_t, h, w1_scale, b1, scales, M, F, K, s);
+  if (err != 0) return err;
+  if (out_dtype == 0) return i8wg::gemm<StoreDequant<float>>(h, w2_t, out, w2_scale, b2, scales, M, K, F, s);
+  if (out_dtype == 1)
+    return i8wg::gemm<StoreDequant<__nv_bfloat16>>(h, w2_t, out, w2_scale, b2, scales, M, K, F, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -21,8 +21,8 @@ namespace {
 
 template <typename TA>
 int dispatch_out(const i8gemm::Args& g, int out_dtype, cudaStream_t s) {
-  if (out_dtype == 0) return i8gemm::launch<TA, i8gemm::StoreDequant<float, 0>>(g, s);
-  if (out_dtype == 1) return i8gemm::launch<TA, i8gemm::StoreDequant<__nv_bfloat16, 0>>(g, s);
+  if (out_dtype == 0) return i8gemm::launch<TA, i8gemm::StoreDequant<float>>(g, s);
+  if (out_dtype == 1) return i8gemm::launch<TA, i8gemm::StoreDequant<__nv_bfloat16>>(g, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

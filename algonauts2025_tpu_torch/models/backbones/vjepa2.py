@@ -26,6 +26,7 @@ import dataclasses
 import functools
 import math
 import typing as tp
+import weakref
 
 import numpy as np
 import torch
@@ -74,7 +75,10 @@ class _QDense(nn.Module):
     ``static_scale`` uses the calibrated activation scale ``a_scale``; on a
     CUDA card, with 128-aligned dims, that runs the fused w8a8 kernel.
     While ``observing`` (set by ``calibrate_quant_scales``) every call
-    records its input absmax in ``absmax`` and quantizes dynamically."""
+    records its input absmax in ``absmax`` and quantizes dynamically.
+    ``kernel_q_kmajor`` gives the K-major copy that the fused MLP kernel
+    reads (not a buffer: it is rebuilt from ``kernel_q`` whenever that
+    changes)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  static_scale: bool = False, device=None) -> None:
@@ -88,6 +92,21 @@ class _QDense(nn.Module):
         self.register_buffer("scale", torch.full((features,), 0.01, device=device))
         self.register_buffer("a_scale", torch.zeros((), device=device))
         self.register_buffer("bias", torch.zeros(features, device=device) if use_bias else None)
+        self._kmajor: torch.Tensor | None = None
+        self._kmajor_of: tuple | None = None
+
+    def kernel_q_kmajor(self) -> torch.Tensor:
+        """``kernel_q.T`` as a contiguous (features, in_features) int8 copy,
+        the layout in which wgmma reads an 8-bit B operand.  Made once and
+        kept; made again when ``kernel_q`` is another tensor (``to``,
+        ``cuda``), has other storage, or was written in place (``copy_`` in
+        ``init_random`` or ``load_state_dict`` raises its version)."""
+        w = self.kernel_q
+        key = (weakref.ref(w), w._version, w.data_ptr(), w.device)
+        held = self._kmajor_of
+        if held is None or held[0]() is not w or held[1:] != key[1:]:
+            self._kmajor, self._kmajor_of = w.t().contiguous(), key
+        return self._kmajor
 
     def observe(self, x: torch.Tensor) -> None:
         if self.observing:
@@ -237,7 +256,8 @@ class VJEPA2Block(nn.Module):
             # state in device memory
             fc1, fc2 = self.fc1, self.fc2
             h = int8_mlp_fused(h, fc1.kernel_q, fc1.scale, fc1.bias, fc2.kernel_q, fc2.scale,
-                               fc2.bias, fc1.a_scale, fc2.a_scale, out_dtype=h.dtype)
+                               fc2.bias, fc1.a_scale, fc2.a_scale, out_dtype=h.dtype,
+                               w1_kmajor=fc1.kernel_q_kmajor(), w2_kmajor=fc2.kernel_q_kmajor())
         else:
             h = self.fc2(F.gelu(self.fc1(h)))
         x = x + h

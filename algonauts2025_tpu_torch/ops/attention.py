@@ -24,6 +24,7 @@ __all__ = [
     "dot_product_attention",
     "fused_attention",
     "attention_forward",
+    "vector_layout",
     "launch_counts",
 ]
 
@@ -76,10 +77,31 @@ def dot_product_attention(
 _FORWARD = ("attention", "attn_forward", (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.POINTER(ctypes.c_longlong),
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_void_p,
 ))
 _SMEM_BYTES = ("attention", "attn_smem_bytes", (ctypes.c_int,), ctypes.c_longlong)
+#: elements the kernel moves at a time on its vector route
+_VECTOR = 4
+
+
+def vector_layout(head_dim: int, strides, data_ptrs, element_size: int) -> bool:
+    """Whether the kernel may read q, k, v and write o four elements at a
+    time: the head dim and every (b, h, t) stride in ``strides`` (one
+    sequence a tensor) are multiples of 4 elements and every base in
+    ``data_ptrs`` is aligned to 4 elements.  Otherwise the same kernel
+    moves one element at a time.  A pure function of the layout, decided
+    before the launch: it never copies and never retries."""
+    return (head_dim % _VECTOR == 0
+            and all(s % _VECTOR == 0 for st in strides for s in st[:3])
+            and all(ptr % (_VECTOR * element_size) == 0 for ptr in data_ptrs))
+
+
+def _output_like(q: torch.Tensor) -> torch.Tensor:
+    """The kernel's output for q: allocated in (B, T, H, Dh) order and
+    returned as a (B, H, T, Dh) view."""
+    b, h, t, dh = q.shape
+    return torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
 
 
 def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -88,7 +110,8 @@ def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     q, k and v may be strided views (the trunk's head split of its fused
     qkv projection) as long as the head dim is contiguous; the output is
     allocated in (B, T, H, Dh) order and returned as a (B, H, T, Dh) view,
-    so the caller's merge of the heads is free."""
+    so the caller's merge of the heads is free.  ``vector_layout`` picks the
+    kernel's load width from the four layouts."""
     _cuda.check_cuda("attention", q=q, k=k, v=v)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype not in _cuda.DTYPE_CODES:
@@ -107,15 +130,16 @@ def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError(f"attention kernel: empty shape {tuple(q.shape)}")
     if b * h > 65535:
         raise ValueError(f"attention kernel: B*H={b * h} exceeds the grid's 65535")
-    out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for x in (q, k, v, out) for s in x.stride()[:3])
-    )
+    out = _output_like(q)
+    tensors = (q, k, v, out)
+    vec = vector_layout(dh, [x.stride() for x in tensors], [x.data_ptr() for x in tensors],
+                        q.element_size())
+    strides = (ctypes.c_longlong * 12)(*(s for x in tensors for s in x.stride()[:3]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _cuda.function(*_FORWARD)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            b, h, t, dh, _cuda.DTYPE_CODES[q.dtype], dh**-0.5, stream,
+            b, h, t, dh, _cuda.DTYPE_CODES[q.dtype], int(vec), dh**-0.5, stream,
         )
     if err != 0:
         raise RuntimeError(

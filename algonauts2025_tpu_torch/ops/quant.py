@@ -50,9 +50,12 @@ _W8A8 = ("w8a8", "w8a8_forward", (
     ctypes.c_void_p,
 ))
 _INT8_MLP = ("int8_mlp", "int8_mlp_forward", (
-    (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 4
+    (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4
     + (ctypes.c_void_p,)
 ))
+#: the fused MLP's K and F must be multiples of this (the JAX wrapper's
+#: rule, and the kernel's 128-deep stages and 128-wide tiles)
+_MLP_ALIGN = 128
 
 
 def _static_scale(s, poison_if: torch.Tensor | None = None) -> torch.Tensor:
@@ -242,8 +245,13 @@ def int8_mlp_fused_plain(
     x_scale: torch.Tensor | float,
     h_scale: torch.Tensor | float,
     out_dtype: torch.dtype = torch.bfloat16,
+    *,
+    w1_kmajor: torch.Tensor | None = None,
+    w2_kmajor: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The plain version of ``int8_mlp_fused`` on any device."""
+    """The plain version of ``int8_mlp_fused`` on any device; it reads the
+    (K, N) weights and takes the K-major copies only to share the kernel's
+    arguments."""
     k = w1_q.shape[0]
     sx, sh = _coupled_scales(x_scale, h_scale, x.device)
     xf = x.float().reshape(-1, k)
@@ -263,38 +271,52 @@ def int8_mlp_fused(
     x_scale: torch.Tensor | float,
     h_scale: torch.Tensor | float,
     out_dtype: torch.dtype = torch.bfloat16,
+    *,
+    w1_kmajor: torch.Tensor | None = None,
+    w2_kmajor: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Static-scale w8a8 MLP: gelu(x @ w1 + b1) @ w2 + b2, quantization inside.
 
     ``x_scale`` / ``h_scale`` are the calibrated scales of the input and of
-    the post-gelu hidden state.  The kernel (CUDA tensors) or its plain
-    version (CPU tensors)."""
+    the post-gelu hidden state.  K and F must be multiples of 128, as the
+    JAX wrapper requires.  The kernel (CUDA tensors) or its plain version
+    (CPU tensors).  The kernel reads its weights K-major: ``w1_kmajor`` is
+    ``w1_q.T`` (F, K) and ``w2_kmajor`` is ``w2_q.T`` (K, F), contiguous;
+    both are required on a CUDA card and ignored on the CPU."""
     lead = x.shape[:-1]
     k, f = w1_q.shape
     if x.shape[-1] != k or w2_q.shape != (f, k):
         raise ValueError(
             f"int8_mlp_fused: x (..., {x.shape[-1]}), w1 {tuple(w1_q.shape)}, w2 {tuple(w2_q.shape)}"
         )
+    if k % _MLP_ALIGN or f % _MLP_ALIGN:
+        raise ValueError(f"int8_mlp_fused needs 128-aligned dims, got K={k}, F={f}")
+    for name, w, want in (("w1_kmajor", w1_kmajor, (f, k)), ("w2_kmajor", w2_kmajor, (k, f))):
+        if w is not None and tuple(w.shape) != want:
+            raise ValueError(f"int8_mlp_fused: {name} must be {want} (K-major), got {tuple(w.shape)}")
     if x.device.type == "cpu":
         return int8_mlp_fused_plain(x, w1_q, w1_scale, b1, w2_q, w2_scale, b2, x_scale, h_scale,
                                     out_dtype)
+    if w1_kmajor is None or w2_kmajor is None:
+        raise ValueError("int8_mlp kernel: w1_kmajor and w2_kmajor (the K-major weights) are required")
     sc = _coupled_scales(x_scale, h_scale, x.device)
     x2 = x.reshape(-1, k)
     w1_scale, b1, w2_scale, b2 = (t.float() for t in (w1_scale, b1, w2_scale, b2))
     _check_float("int8_mlp", x2, out_dtype)
-    _cuda.check_cuda("int8_mlp", contiguous=True, x=x2, w1_q=w1_q, w1_scale=w1_scale, b1=b1,
-                     w2_q=w2_q, w2_scale=w2_scale, b2=b2, scales=sc)
-    if w1_q.dtype != torch.int8 or w2_q.dtype != torch.int8:
-        raise TypeError("int8_mlp kernel: w1_q and w2_q must be int8")
+    _cuda.check_cuda("int8_mlp", contiguous=True, x=x2, w1_kmajor=w1_kmajor, w1_scale=w1_scale, b1=b1,
+                     w2_kmajor=w2_kmajor, w2_scale=w2_scale, b2=b2, scales=sc)
+    if w1_kmajor.dtype != torch.int8 or w2_kmajor.dtype != torch.int8:
+        raise TypeError("int8_mlp kernel: w1_kmajor and w2_kmajor must be int8")
     m = x2.shape[0]
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     hidden = torch.empty((m, f), dtype=torch.int8, device=x.device)
     out = torch.empty((m, k), dtype=out_dtype, device=x.device)
     codes = _cuda.DTYPE_CODES
     with torch.cuda.device(x.device):
         err = _cuda.function(*_INT8_MLP)(
-            x2.data_ptr(), codes[x2.dtype], w1_q.data_ptr(), w1_scale.data_ptr(),
-            b1.data_ptr(), w2_q.data_ptr(), w2_scale.data_ptr(), b2.data_ptr(),
-            sc.data_ptr(), hidden.data_ptr(), out.data_ptr(), codes[out_dtype],
+            x2.data_ptr(), codes[x2.dtype], w1_kmajor.data_ptr(), w1_scale.data_ptr(),
+            b1.data_ptr(), w2_kmajor.data_ptr(), w2_scale.data_ptr(), b2.data_ptr(),
+            sc.data_ptr(), xq.data_ptr(), hidden.data_ptr(), out.data_ptr(), codes[out_dtype],
             m, k, f, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

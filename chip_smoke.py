@@ -13,10 +13,13 @@ Phases (any failure exits non-zero):
    gradients too); time the kernel, the plain version and one library
    call that computes the same function (a yardstick the port never
    calls): ``scaled_dot_product_attention`` for the attention kernels,
-   ``torch._int_mm`` plus the elementwise quant passes for the int8 ones.
-   The flash kernels run bf16 on the tensor cores and fp32 on the CUDA
-   cores: each fp32 edge case has a bf16 twin, and the SASS of every bf16
-   instantiation must hold ``HGMMA``.  Two mutants of the masked flash
+   ``torch._int_mm`` plus the elementwise quant passes for the int8 ones
+   (and ``torch._int_mm`` alone beside the int8 MLP, the yardstick of its
+   GEMMs).  The trunk attention also runs a layout that takes its
+   one-element loads.  The flash kernels run bf16 on the tensor cores and
+   fp32 on the CUDA cores: each fp32 edge case has a bf16 twin, and the
+   SASS of every bf16 instantiation must hold ``HGMMA``, that of every
+   GEMM of the int8 MLP ``IGMMA``.  Two mutants of the masked flash
    kernel, built from patched copies of its source under
    ``_build/mutants`` (one ignores the key lengths, one ignores
    ``causal``), must fail the same check.  The bench-only fast
@@ -33,15 +36,18 @@ Phases (any failure exits non-zero):
    FmriEncoder configured as ``bench.py``'s ``bench_train`` (0.94 B
    params, batch 16 x 298 steps, remat, InfoNCE, bf16-mu Adam, OneCycle),
    with random weights from a seed: ``init_state``, train steps,
-   ``evaluate`` with the default grid's three metrics, ``predict``.
+   ``evaluate`` with the default grid's three metrics, ``predict``; then
+   one more train step under ``torch.profiler`` (top kernels and the
+   device-busy share).
 5. The video path at full ViT-G width and depth (40 layers, 1408 wide,
    8192 tokens a window), static int8 as the production feature runs it:
    seeded float weights quantized per layer, calibration on the seeded
    input, 10 seeded uint8 windows through ``encode_window_stream`` in
    batches of 4, then ``aggregate_layers`` down to the trunk's video input.
-   The first batch is encoded again with every kernel of the backbone
-   swapped for its plain version on the card, and the token-pooled
-   features of the two must agree.
+   One batch is encoded again under ``torch.profiler``; the first batch is
+   encoded again with every kernel of the backbone swapped for its plain
+   version on the card, and the token-pooled features of the two must
+   agree.
 6. The text path at full Llama-3.2-3B width and depth (28 layers, 3072
    wide, 24 query heads over 8 kv heads of 128, bf16), seeded weights at
    the HF init scale, the hash tokenizer: a seeded 1,280-word transcript
@@ -218,19 +224,30 @@ def build_kernels() -> dict[str, Path]:
     return {name: library for name, (library, _) in builds.items()}
 
 
-def check_sass(library: Path) -> None:
-    """Every bf16 instantiation of the flash kernel runs its products on
-    the tensor cores: each ``flash_tc_kernel`` in the SASS of the built
-    library holds HGMMA instructions."""
+def sass_functions(library: Path) -> list[tuple[str, str]]:
+    """(mangled name, SASS body) of every kernel in ``library``."""
     cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(library)], check=True, capture_output=True,
                           text=True).stdout
-    functions = [f.split(None, 1) for f in re.split(r"\n\s*Function : ", sass)[1:]]
+    return [tuple(f.split(None, 1)) for f in re.split(r"\n\s*Function : ", sass)[1:]]
+
+
+def check_sass(flash_library: Path, mlp_library: Path) -> None:
+    """The tensor-core kernels run their products as warpgroup MMAs: each
+    bf16 instantiation of ``flash_tc_kernel`` holds HGMMA instructions, and
+    each GEMM instantiation of the int8 core (``int8_wgmma.cuh``
+    ``gemm_kernel``, one per epilogue) holds IGMMA, the SASS of
+    ``wgmma.mma_async ... .s32.s8.s8``."""
     hgmma = {tuple(int(x) for x in re.findall(r"L[ib](\d+)E", name.split("flash_tc_kernel", 1)[1])[:3]):
-             body.count("HGMMA") for name, body in functions if "flash_tc_kernel" in name}
-    log(f"SASS of {library.name}: HGMMA per bf16 instantiation (head dim, masked, bf16 scores) {hgmma}")
+             body.count("HGMMA") for name, body in sass_functions(flash_library) if "flash_tc_kernel" in name}
+    log(f"SASS of {flash_library.name}: HGMMA per bf16 instantiation (head dim, masked, bf16 scores) {hgmma}")
     if len(hgmma) != 6 or not all(hgmma.values()):
         raise SystemExit("the bf16 flash instantiations do not all run wgmma (HGMMA)")
+    igmma = {re.search(r"(StoreGeluQuant|StoreDequantI\w+?E)E", name).group(1): body.count("IGMMA")
+             for name, body in sass_functions(mlp_library) if "gemm_kernel" in name}
+    log(f"SASS of {mlp_library.name}: IGMMA per int8 GEMM instantiation (epilogue) {igmma}")
+    if len(igmma) != 3 or not all(igmma.values()):
+        raise SystemExit("the int8 GEMM instantiations do not all run wgmma (IGMMA)")
 
 
 def qkv(shape, dtype, strided: bool, gen: torch.Generator, device="cuda"):
@@ -252,6 +269,8 @@ def check_attention(peaks: dict[str, float]) -> dict:
         ((1, 1, 1, 8), torch.float32, False),
         ((2, 3, 513, 64), torch.float32, False),
         ((2, 3, 513, 64), torch.bfloat16, True),
+        # rows of 30 fp32 values, 120 B apart: the one-element route
+        ((1, 3, 45, 30), torch.float32, True),
     ]
     flagship_err = None
     for shape, dtype, strided in cases:
@@ -260,8 +279,11 @@ def check_attention(peaks: dict[str, float]) -> dict:
         torch.cuda.synchronize()
         ref = attn.dot_product_attention(q.float(), k.float(), v.float())
         err = (out.float() - ref).abs().max().item()
+        route = "vector" if attn.vector_layout(shape[-1], [x.stride() for x in (q, k, v, out)],
+                                              [x.data_ptr() for x in (q, k, v, out)],
+                                              q.element_size()) else "scalar"
         ok = out.dtype == dtype and out.shape == q.shape and err <= TOL[dtype]
-        log(f"attention {shape} {str(dtype)[6:]}{' strided' if strided else ''}: "
+        log(f"attention {shape} {str(dtype)[6:]}{' strided' if strided else ''} ({route} loads): "
             f"max_abs_err {err:.3e} (tol {TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit("attention kernel disagrees with its plain version")
@@ -295,7 +317,7 @@ def check_attention(peaks: dict[str, float]) -> dict:
     bf16_bound = 1e3 * max(flops / peaks["bfloat16"], nbytes / 2 / peaks["bytes"])
     log(f"attention {FLAGSHIP} fp32: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; {rates(flops, kernel_ms, library_ms, bound_ms)})")
     log(f"attention {FLAGSHIP} bf16: kernel {bf16_ms:.4f} ms, bound {bf16_bound:.4f} ms")
     return kernel_record("attention", "attention.cu",
                          "algonauts2025_tpu/ops/attention.py:80 (_attn_kernel)", flagship_err,
@@ -385,6 +407,20 @@ def mlp_case(m, k, f, gen):
     return (x, w1_q, w1_s, b1, w2_q, w2_s, b2), sx, sh
 
 
+def kmajor(args) -> dict[str, torch.Tensor]:
+    """The K-major weights that int8_mlp_fused's kernel reads, from
+    ``mlp_case``'s arguments."""
+    return {"w1_kmajor": args[1].t().contiguous(), "w2_kmajor": args[4].t().contiguous()}
+
+
+def time_int_mm(label: str, a: torch.Tensor, weights: dict[str, torch.Tensor]) -> None:
+    """``torch._int_mm(a, w)`` alone for each (K, N) layout of the weight:
+    the GEMM-only yardstick of the int8 core."""
+    times = {layout: time_ms(lambda: torch._int_mm(a, w), iters=10) for layout, w in weights.items()}
+    log(f"torch._int_mm alone, {label} ({tuple(a.shape)} x {tuple(next(iter(weights.values())).shape)}): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+
+
 def check_int8_mlp(peaks: dict[str, float]) -> dict:
     """Kernel C against its plain version: relative L2 <= 1e-3 and max-abs
     <= 1e-2 max|ref| (the gelu's expf against PyTorch's exp can flip rare
@@ -392,9 +428,11 @@ def check_int8_mlp(peaks: dict[str, float]) -> dict:
     bit-equal is reported."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     main_err = None
-    for m, k, f in [(VITG_M, VITG_D, VITG_F), (130, 256, 512)]:
+    # ViT-G; a ragged M; one row and one 128-deep stage; a ragged M with an
+    # F of three 128-wide tiles
+    for m, k, f in [(VITG_M, VITG_D, VITG_F), (130, 256, 512), (1, 128, 128), (300, 1408, 384)]:
         args, sx, sh = mlp_case(m, k, f, gen)
-        out = quant.int8_mlp_fused(*args, sx, sh, out_dtype=torch.bfloat16)
+        out = quant.int8_mlp_fused(*args, sx, sh, out_dtype=torch.bfloat16, **kmajor(args))
         torch.cuda.synchronize()
         ref = quant.int8_mlp_fused_plain(*args, sx, sh)
         o, r = out.float(), ref.float()
@@ -411,13 +449,14 @@ def check_int8_mlp(peaks: dict[str, float]) -> dict:
             main_err = err
     zero = torch.zeros((), device="cuda")
     for bad in ((zero, sh), (sx, zero)):
-        if not torch.isnan(quant.int8_mlp_fused(*args, *bad)).all():
+        if not torch.isnan(quant.int8_mlp_fused(*args, *bad, **kmajor(args))).all():
             raise SystemExit("the int8 MLP kernel did not poison both scales together")
     log("int8_mlp x_scale = 0 / h_scale = 0: all NaN ok")
 
     m, k, f = VITG_M, VITG_D, VITG_F
     args, sx, sh = mlp_case(m, k, f, gen)
     x, w1_q, w1_s, b1, w2_q, w2_s, b2 = args
+    km = kmajor(args)
     sc = quant._coupled_scales(sx, sh, "cuda")
 
     def library():
@@ -426,15 +465,20 @@ def check_int8_mlp(peaks: dict[str, float]) -> dict:
         hq = torch.clamp(torch.round(h / sc[1]), -127, 127).to(torch.int8)
         return (torch._int_mm(hq, w2_q).float() * (sc[1] * w2_s) + b2).to(torch.bfloat16)
 
-    kernel_ms = time_ms(lambda: quant.int8_mlp_fused(*args, sx, sh), iters=10)
+    kernel_ms = time_ms(lambda: quant.int8_mlp_fused(*args, sx, sh, **km), iters=10)
     plain_ms = time_ms(lambda: quant.int8_mlp_fused_plain(*args, sx, sh), iters=3, warmup=1)
     library_ms = time_ms(library, iters=10)
     ops = 2 * m * k * f * 2
     nbytes = m * k * 2 + 2 * k * f + 8 * (f + k) + m * k * 2
     bound_ms, bound_by = bound(ops, nbytes, peaks["int8"], peaks)
-    log(f"int8_mlp ({m}, {k}, {f}) bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"_int_mm + quant/gelu passes {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+    log(f"int8_mlp ({m}, {k}, {f}) bf16: kernel {kernel_ms:.4f} ms ({ops / kernel_ms / 1e9:.1f} TOP/s), "
+        f"plain {plain_ms:.4f} ms, _int_mm + quant/gelu passes {library_ms:.4f} ms "
+        f"({ops / library_ms / 1e9:.1f} TOP/s), bound {bound_ms:.4f} ms "
         f"({ops / 1e12:.3f} TOP, {nbytes / 1e6:.1f} MB)")
+    xq = torch.clamp(torch.round(x.float() / sc[0]), -127, 127).to(torch.int8)
+    hq = torch.randint(-127, 128, (m, f), generator=gen, device="cuda", dtype=torch.int8)
+    time_int_mm("fc1", xq, {"(K, N) row-major": w1_q, "K-major copy as (K, N)": km["w1_kmajor"].t()})
+    time_int_mm("fc2", hq, {"(K, N) row-major": w2_q, "K-major copy as (K, N)": km["w2_kmajor"].t()})
     return kernel_record("int8_mlp", "int8_mlp.cu",
                          "algonauts2025_tpu/ops/quant.py:230 (_fused_mlp_kernel)",
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
@@ -958,6 +1002,8 @@ def video_path(n_windows: int = 10, window_batch: int = 4) -> dict:
         raise SystemExit(f"aggregate_layers gave {trunk_input.shape} or non-finite values")
     if launches != expected:
         raise SystemExit("the video path did not launch the kernels as expected")
+    profile_run(f"one ViT-G window batch of {window_batch}", lambda: encode(np.stack(windows[:window_batch])),
+                statistics.mean(batch_s[1:]) * 1e3, top=12)
 
     # the first batch again through the plain versions: cosine and relative
     # L2 of each window's token-pooled feature vector, layer by layer
@@ -1175,19 +1221,19 @@ def w2v_flops(cfg: Wav2VecBertConfig, t: int) -> float:
     return 2 * t * cfg.input_dim * h + cfg.num_layers * layer
 
 
-def profile_chunk(backbone: TorchAudioBackbone, chunk, unprofiled_ms: float, top: int = 10) -> None:
-    """One chunk again under ``torch.profiler``: the device time of its
-    kernels by name, and their sum against the chunk's unprofiled host
-    time (the rest is the device's idle share)."""
+def profile_run(label: str, run, unprofiled_ms: float, top: int = 10) -> None:
+    """``run()`` again under ``torch.profiler``: the device time of its
+    kernels by name, and their sum against the same work's unprofiled host
+    time (the device-busy share; the rest is the device's idle share)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        list(encode_sound_stream(backbone, [chunk]))
+        run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"audio {chunk[2]} s chunk under torch.profiler: device kernels {busy_ms:.3f} ms in "
+    log(f"{label} under torch.profiler: device kernels {busy_ms:.3f} ms in "
         f"{sum(e.count for e in kernels)} launches, {busy_ms / unprofiled_ms:.3f} of the unprofiled "
         f"{unprofiled_ms:.3f} ms; top kernels by device time:")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
@@ -1239,7 +1285,8 @@ def audio_path(peaks: dict[str, float]) -> dict:
     if sorted(b for b, _ in backbone.bucket_shapes) != list(AUDIO_BUCKETS) or any(launches.values()):
         raise SystemExit("the audio path ran other buckets than reckoned, or launched a kernel")
 
-    profile_chunk(backbone, chunks[-1], chunk_s[-1] * 1e3)
+    profile_run(f"audio {chunks[-1][2]} s chunk", lambda: list(encode_sound_stream(backbone, [chunks[-1]])),
+                chunk_s[-1] * 1e3)
 
     # the 38.3 s chunk again at its exact length: the padding is masked out
     wav, sr, _ = chunks[1]
@@ -1363,6 +1410,8 @@ def main_path(n_steps: int = 5, n_eval: int = 2, n_predict: int = 1) -> dict:
     log(f"attention launches {launches['attention']} (expected {expected})")
     if launches["attention"] != expected:
         raise SystemExit("the main path did not launch the attention kernel as expected")
+    profile_run("one flagship train step", lambda: trainer.train_step(train[-1].data)[0].item(),
+                statistics.median(step_s[1:]) * 1e3, top=15)
     return {"attention": launches["attention"], "step_s": statistics.median(step_s[1:]),
             "peak_gb": peak_gb, "n_params": n_params}
 
@@ -1373,7 +1422,7 @@ def main() -> None:
     peaks = peaks_for(kind)
     torch.manual_seed(SEED)
     mutants = build_kernels()
-    check_sass(_cuda.build("flash_attention"))
+    check_sass(_cuda.build("flash_attention"), _cuda.build("int8_mlp"))
     kernels = [check_attention(peaks), check_flash(peaks), check_flash_masked(peaks, mutants),
                check_fast(peaks), check_packed(peaks), check_w8a8(peaks), check_int8_mlp(peaks)]
     check_small_against_cpu()

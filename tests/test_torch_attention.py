@@ -126,3 +126,80 @@ def test_kernel_wrapper_rejects_cpu_tensors(rng):
     q, k, v = map(torch.from_numpy, _qkv(rng, (1, 1, 4, 8)))
     with pytest.raises(ValueError, match="not a CUDA device"):
         port_attn._attention_cuda(q, k, v)
+
+
+def _trunk_qkv(dim: int, heads: int, b: int, t: int):
+    """(q, k, v) as the trunk's SelfAttention hands them to fused_attention,
+    on the meta device (layouts only), with the trunk's rotary width."""
+    from unittest import mock
+
+    from algonauts2025_tpu_torch.models import transformer
+
+    dh = dim // heads
+    attn = transformer.SelfAttention(dim, heads, dh, min(max(dh // 2, 32), dh), device="meta")
+    seen = []
+
+    def capture(q, k, v, mask=None):
+        seen.append((q, k, v))
+        return q
+
+    with torch.no_grad(), mock.patch.object(transformer, "fused_attention", capture):
+        attn(torch.empty((b, t, dim), device="meta"))
+    return seen[0]
+
+
+#: every trunk configuration in the repo as (dim, heads, batch, T): the
+#: flagship (bench.py's bench_train: (16, 8, 298, 384) fused-qkv views),
+#: chip_smoke.py's small trunk and the CPU tests' encoders
+TRUNKS = {
+    "flagship": (3072, 8, 16, 298),
+    "chip_smoke_small": (96, 2, 4, 200),
+    "test_48x4": (48, 4, 2, 11),
+    "test_48x1": (48, 1, 2, 11),
+    "test_128x1": (128, 1, 2, 11),
+    "test_192x4": (192, 4, 2, 11),
+}
+
+
+def _route(q, k, v):
+    out = port_attn._output_like(q)
+    tensors = (q, k, v, out)
+    return port_attn.vector_layout(q.shape[-1], [x.stride() for x in tensors],
+                                   [x.data_ptr() for x in tensors], q.element_size())
+
+
+@pytest.mark.parametrize("trunk", sorted(TRUNKS))
+def test_every_trunk_takes_the_vector_route(trunk):
+    """The kernel's layout routing is a pure function of the layouts, and
+    every trunk the repo configures gets four-element loads."""
+    q, k, v = _trunk_qkv(*TRUNKS[trunk])
+    dim, heads, b, t = TRUNKS[trunk]
+    assert q.shape == (b, heads, t, dim // heads) and v.stride(-1) == 1
+    assert _route(q, k, v) is True and _route(q, k, v) is True
+
+
+@pytest.mark.parametrize("shape,strided,vector", [
+    ((16, 8, 298, 384), True, True),
+    ((2, 4, 37, 24), False, True),
+    ((1, 1, 1, 8), False, True),
+    ((2, 3, 513, 64), True, True),
+    ((1, 3, 45, 30), True, False),   # rows of 30 values: one element at a time
+    ((2, 3, 9, 30), False, False),
+])
+def test_route_of_chip_smoke_cases(shape, strided, vector):
+    """chip_smoke.py's check_attention cases, built as it builds them."""
+    import chip_smoke
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = chip_smoke.qkv(shape, dtype, strided, torch.Generator().manual_seed(0), device="cpu")
+        assert _route(q, k, v) is vector
+
+
+def test_route_refuses_vector_loads_off_alignment():
+    base = torch.zeros(4 * 3 * 16 * 64 + 1)
+    x = base[1:].view(4, 3, 16, 64)  # starts one float past a 16-byte boundary
+    y = torch.zeros(4, 3, 16, 64)
+    assert _route(y, y, y) is True
+    assert _route(x, y, y) is False
+    odd = torch.zeros(8192).as_strided((2, 3, 16, 64), (3 * 16 * 66, 16 * 66, 66, 1))
+    assert _route(y, odd, y) is False

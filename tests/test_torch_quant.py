@@ -189,3 +189,86 @@ def test_kernel_wrappers_refuse_cpu_tensors_for_the_kernel(rng):
     before = dict(tq.launch_counts)
     tq.int8_matmul_fused(x, w_q, w_s, 1.0)
     assert tq.launch_counts == before
+
+
+def _kmajor_backbones():
+    """A small quantized JAX V-JEPA2 with two parameter draws, and the
+    port's backbone of the same configuration."""
+    from algonauts2025_tpu.models.backbones.vjepa2 import VJEPA2Backbone, VJEPA2Config
+    from algonauts2025_tpu_torch.models.backbones import vjepa2 as tv
+
+    kw = dict(crop_size=32, patch_size=16, tubelet_size=2, frames_per_clip=4, hidden_size=128,
+              num_layers=2, num_heads=4, mlp_ratio=2.0, quantize=True)
+    model = VJEPA2Backbone(VJEPA2Config(dtype=jnp.float32, **kw), token_pool=True)
+    pixels = jnp.zeros((1, 4, 32, 32, 3), jnp.float32)
+    params = [model.init(jax.random.PRNGKey(seed), pixels)["params"] for seed in (0, 1)]
+    port = tv.VJEPA2Backbone(tv.VJEPA2Config(dtype=torch.float32, **kw), token_pool=True)
+    return params, port, tv._QDense
+
+
+def test_kernel_q_kmajor_follows_every_weight_load():
+    """The K-major copy the fused MLP kernel reads equals kernel_q.T after
+    init_random, after load_state_dict of the JAX params, after a second
+    load and after an in-place write, and is kept while nothing changes."""
+    from algonauts2025_tpu_torch.models import vjepa2_params_to_torch
+
+    params, port, qdense = _kmajor_backbones()
+    denses = [m for m in port.modules() if isinstance(m, qdense)]
+    assert len(denses) == 12
+
+    def held() -> list[torch.Tensor]:
+        copies = []
+        for m in denses:
+            km = m.kernel_q_kmajor()
+            assert km.dtype == torch.int8 and km.is_contiguous()
+            assert km.shape == (m.features, m.in_features) and torch.equal(km, m.kernel_q.T)
+            assert m.kernel_q_kmajor() is km
+            copies.append(km.clone())
+        return copies
+
+    port.init_random(torch.Generator().manual_seed(0))
+    seen = [held()]
+    for p in params:
+        port.load_state_dict(vjepa2_params_to_torch(p))
+        seen.append(held())
+    with torch.no_grad():
+        denses[0].kernel_q.neg_()
+    seen.append(held())
+    # each load really changed the weights, so a stale copy would have failed
+    for before, after in zip(seen, seen[1:]):
+        assert any(not torch.equal(a, b) for a, b in zip(before, after))
+
+
+@pytest.mark.parametrize("k,f", [(192, 256), (256, 192), (128, 100)])
+def test_int8_mlp_fused_refuses_unaligned_dims(rng, k, f):
+    _, torch_args, sx = _mlp_inputs(rng, 8, k, f)
+    with pytest.raises(ValueError, match="128-aligned dims"):
+        tq.int8_mlp_fused(*torch_args, torch.tensor(sx), torch.tensor(0.02))
+
+
+@pytest.mark.parametrize("which", ["w1_kmajor", "w2_kmajor"])
+def test_int8_mlp_fused_refuses_kmajor_of_wrong_shape(rng, which):
+    _, torch_args, sx = _mlp_inputs(rng, 8, 128, 256)
+    w1_q, w2_q = torch_args[1], torch_args[4]
+    good = {"w1_kmajor": w1_q.T.contiguous(), "w2_kmajor": w2_q.T.contiguous()}
+    bad = {**good, which: {"w1_kmajor": w1_q, "w2_kmajor": w2_q}[which]}  # the (K, N) layout
+    with pytest.raises(ValueError, match=f"{which} must be"):
+        tq.int8_mlp_fused(*torch_args, torch.tensor(sx), torch.tensor(0.02), **bad)
+    out = tq.int8_mlp_fused(*torch_args, torch.tensor(sx), torch.tensor(0.02), **good)
+    assert torch.equal(out, tq.int8_mlp_fused_plain(*torch_args, torch.tensor(sx), torch.tensor(0.02)))
+
+
+def test_int8_mlp_fused_plain_with_kmajor_matches_pallas(rng):
+    """The plain version, called as the backbone calls the kernel (with the
+    K-major copies), against the Pallas kernel in interpret mode at a
+    ragged M and an F of three 128-wide tiles; limits as above."""
+    jax_args, torch_args, sx = _mlp_inputs(rng, 45, 128, 384)
+    sh = np.float32(0.02)
+    ref = np.asarray(jq.int8_mlp_fused(*jax_args, jnp.float32(sx), jnp.float32(sh), bm=128,
+                                       fchunk=128, out_dtype=jnp.float32, interpret=True))
+    got = tq.int8_mlp_fused_plain(*torch_args, torch.tensor(sx), torch.tensor(sh), torch.float32,
+                                  w1_kmajor=torch_args[1].T.contiguous(),
+                                  w2_kmajor=torch_args[4].T.contiguous()).numpy()
+    rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+    assert rel <= 1e-3, rel
+    assert np.abs(got - ref).max() <= 1e-2 * np.abs(ref).max()
