@@ -70,23 +70,6 @@ struct StoreGeluQuant {
   }
 };
 
-// fc2 epilogue: dequant by scales[1] (sh), + b2, in TO
-template <typename TO>
-struct StoreDequant {
-  float sh;
-  __device__ explicit StoreDequant(const float* scales) : sh(scales[1]) {}
-  __device__ __forceinline__ void store(void* out, int N, int m, int n, int acc0, int acc1, float2 ws,
-                                        float2 bias) const {
-    const float y0 = i8wg::dequant(acc0, sh, ws.x, bias.x);
-    const float y1 = i8wg::dequant(acc1, sh, ws.y, bias.y);
-    TO* dst = static_cast<TO*>(out) + (long long)m * N + n;
-    if constexpr (sizeof(TO) == 4)
-      *reinterpret_cast<float2*>(dst) = make_float2(y0, y1);
-    else
-      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(y0, y1);
-  }
-};
-
 }  // namespace
 
 extern "C" {
@@ -113,9 +96,11 @@ int int8_mlp_forward(const void* x, int x_dtype, const int8_t* w1_t, const float
   if (err != 0) return err;
   err = i8wg::gemm<StoreGeluQuant>(xq, w1_t, h, w1_scale, b1, scales, M, F, K, s);
   if (err != 0) return err;
-  if (out_dtype == 0) return i8wg::gemm<StoreDequant<float>>(h, w2_t, out, w2_scale, b2, scales, M, K, F, s);
+  // fc2: dequant by scales[1] (sh), + b2, in the output dtype
+  if (out_dtype == 0)
+    return i8wg::gemm<i8wg::StoreDequant<float, 1>>(h, w2_t, out, w2_scale, b2, scales, M, K, F, s);
   if (out_dtype == 1)
-    return i8wg::gemm<StoreDequant<__nv_bfloat16>>(h, w2_t, out, w2_scale, b2, scales, M, K, F, s);
+    return i8wg::gemm<i8wg::StoreDequant<__nv_bfloat16, 1>>(h, w2_t, out, w2_scale, b2, scales, M, K, F, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,10 +1,11 @@
 // int8 GEMM core on Hopper's tensor cores, sm_90a: out = Epi(A B) with A
 // (M, K) int8 and B given K-major as Bt (N, K) int8, both row-major, and an
-// int32 accumulator that never leaves registers.  Included by int8_mlp.cu
-// (kernel row 7); w8a8.cu (row 6) still runs the __dp4a core of
-// int8_gemm.cuh.  flash_attention.cu does not include it: its helpers below
-// (mbarriers, TMA, wgmma descriptors and fences, the cuTensorMapEncodeTiled
-// lookup) are copies of that file's.
+// int32 accumulator that never leaves registers.  Included by both int8
+// kernels: w8a8.cu (kernel row 6, one GEMM) and int8_mlp.cu (row 7, two),
+// which share the quantize pass and the StoreDequant epilogue below.
+// flash_attention.cu does not include it: its helpers below (mbarriers,
+// TMA, wgmma descriptors and fences, the cuTensorMapEncodeTiled lookup) are
+// copies of that file's.
 //
 // What bounds an int8 GEMM on an H100: at the ViT-G MLP's shapes (M =
 // 32768, K = 1408, N = 6144 and back) 2 M K N = 0.567 TOP a GEMM against
@@ -28,8 +29,8 @@
 // is the fp32 one of flash_attention.cu: rows r0 = 16 warp + lane / 4 and
 // r0 + 8 of the warpgroup's 64, column pairs 8 j + 2 (lane % 4) + {0, 1}.
 //
-// Quantization is the JAX package's (ops/quant.py int8_matmul), as in
-// int8_gemm.cuh: true division (__fdiv_rn), round half to even (rintf),
+// Quantization is the JAX package's (ops/quant.py int8_matmul): true
+// division (__fdiv_rn), round half to even (rintf),
 // clamp to +-127, and only then the conversion to an integer; fmaxf/fminf
 // turn a NaN quotient (a NaN-poisoned scale) into a bound, so the
 // conversion is always defined.  The dequantization is one fused
@@ -232,6 +233,26 @@ __global__ void __launch_bounds__(kThreads, 2) gemm_kernel(const __grid_constant
     }
   }
 }
+
+// The dequantizing epilogue: fma(acc, scales[kScale] * w_scale[n], bias[n])
+// written in TO (float or __nv_bfloat16, two adjacent columns at a time).
+// kScale picks the device scalar of the GEMM's int8 A: sx for w8a8.cu (0),
+// the hidden state's sh for int8_mlp.cu's fc2 (1).
+template <typename TO, int kScale>
+struct StoreDequant {
+  float s;
+  __device__ explicit StoreDequant(const float* scales) : s(scales[kScale]) {}
+  __device__ __forceinline__ void store(void* out, int N, int m, int n, int acc0, int acc1, float2 ws,
+                                        float2 bias) const {
+    const float y0 = dequant(acc0, s, ws.x, bias.x);
+    const float y1 = dequant(acc1, s, ws.y, bias.y);
+    TO* dst = static_cast<TO*>(out) + (long long)m * N + n;
+    if constexpr (sizeof(TO) == 4)
+      *reinterpret_cast<float2*>(dst) = make_float2(y0, y1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(y0, y1);
+  }
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -2,46 +2,59 @@
 //
 // Replaces: algonauts2025_tpu/ops/quant.py::_fused_w8a8_kernel (the Pallas
 // TPU kernel launched by int8_matmul_fused).  It quantizes the activation
-// x with a calibrated static scale sx in registers (true division, round
-// half to even, clamp +-127), multiplies int8 x int8 into an int32
-// accumulator, and writes acc * (sx * w_scale[n]) + bias[n] in the output
-// dtype; neither the int8 activations nor the int32 sums reach device
-// memory.  It equals its plain PyTorch version bit for bit.
+// x with a calibrated static scale sx (true division, round half to even,
+// clamp +-127), multiplies int8 x int8 into an int32 accumulator, and
+// writes acc * (sx * w_scale[n]) + bias[n] in the output dtype, one fused
+// multiply-add with _rn intrinsics.  It equals its plain PyTorch version
+// bit for bit.
 //
 // What bounds it on an H100: at ViT-G with a window batch of 4 one call is
 // (32768 x 1408) @ (1408 x 1408): 130 GOP of int8 work against ~190 MB of
 // bf16 in, int8 weights and bf16 out, so the bound is operations (~0.066 ms
-// at the 1979 TOP/s int8 tensor-core peak).  This first version runs on the
-// CUDA cores with __dp4a (int8_gemm.cuh), well below that peak; tensor
-// cores (mma.sync / wgmma s8) are the next step.
+// at the 1979 TOP/s int8 tensor-core peak), reached only through wgmma.
+//
+// Why the TPU design does not carry over: the TPU kernel quantizes each
+// (bm, bk) block of x in registers, once only because its block spans the
+// whole N (1408).  Here a block's accumulator holds 128 of the 1408 columns,
+// so quantizing inside the GEMM would redo each element 11 times.  The call
+// is two launches on the tensor-core core of int8_wgmma.cuh instead:
+//   1. quantize x by sx into an int8 (M, K) scratch (92 MB read and 46 MB
+//      written at ViT-G, ~0.05 ms), which TMA then feeds to the GEMM at
+//      half the bytes of bf16 rows;
+//   2. the wgmma s8.s8 -> s32 GEMM over the scratch and the K-major weight
+//      (N, K) (wgmma reads an 8-bit B operand only K-major), in 128 x 128
+//      tiles of 11 stages each at K = 1408, with the StoreDequant epilogue
+//      reading sx (scales[0]).
+// The two launches move ~0.28 GB at ViT-G (0.083 ms at 3.35 TB/s), just
+// above the operations' bound.  K and N must be multiples of 128.
 
-#include "int8_gemm.cuh"
-
-namespace {
-
-template <typename TA>
-int dispatch_out(const i8gemm::Args& g, int out_dtype, cudaStream_t s) {
-  if (out_dtype == 0) return i8gemm::launch<TA, i8gemm::StoreDequant<float>>(g, s);
-  if (out_dtype == 1) return i8gemm::launch<TA, i8gemm::StoreDequant<__nv_bfloat16>>(g, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace
+#include "int8_wgmma.cuh"
 
 extern "C" {
 
-// out (M, N) = dequant(quant(x, sx) @ w_q) + bias.  sx: device pointer to one
-// float (already validated / NaN-poisoned by the caller).  bias may be null.
-// x_dtype / out_dtype: 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError() after the launch (0 on success).
-int w8a8_forward(const void* x, int x_dtype, const int8_t* w_q, const float* w_scale,
-                 const float* bias, const float* sx, void* out, int out_dtype, int M, int N,
-                 int K, void* stream) {
-  i8gemm::Args g{x, w_q, w_scale, bias, sx, out, M, N, K};
+// out (M, N) = dequant(quant(x, sx) @ w_t^T) + bias.  w_t (N, K): the int8
+// weight K-major.  sx: device pointer to one float (already validated /
+// NaN-poisoned by the caller).  xq: int8 (M, K) scratch.  bias may be null.
+// x_dtype / out_dtype: 0 = float32, 1 = bfloat16.  K and N multiples of
+// 128.  Returns the first non-zero cudaGetLastError() of the two launches.
+int w8a8_forward(const void* x, int x_dtype, const int8_t* w_t, const float* w_scale,
+                 const float* bias, const float* sx, int8_t* xq, void* out, int out_dtype, int M,
+                 int N, int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0) return dispatch_out<float>(g, out_dtype, s);
-  if (x_dtype == 1) return dispatch_out<__nv_bfloat16>(g, out_dtype, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (out_dtype != 0 && out_dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = (long long)M * K;
+  int err;
+  if (x_dtype == 0)
+    err = i8wg::quantize_rows<float>(x, xq, sx, n, s);
+  else if (x_dtype == 1)
+    err = i8wg::quantize_rows<__nv_bfloat16>(x, xq, sx, n, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (err != 0) return err;
+  // dequant by scales[0] (sx), + bias, in the output dtype
+  if (out_dtype == 0)
+    return i8wg::gemm<i8wg::StoreDequant<float, 0>>(xq, w_t, out, w_scale, bias, sx, M, N, K, s);
+  return i8wg::gemm<i8wg::StoreDequant<__nv_bfloat16, 0>>(xq, w_t, out, w_scale, bias, sx, M, N, K, s);
 }
 
 }  // extern "C"

@@ -76,8 +76,8 @@ class _QDense(nn.Module):
     CUDA card, with 128-aligned dims, that runs the fused w8a8 kernel.
     While ``observing`` (set by ``calibrate_quant_scales``) every call
     records its input absmax in ``absmax`` and quantizes dynamically.
-    ``kernel_q_kmajor`` gives the K-major copy that the fused MLP kernel
-    reads (not a buffer: it is rebuilt from ``kernel_q`` whenever that
+    ``kernel_q_kmajor`` gives the K-major copy that both fused kernels
+    read (not a buffer: it is rebuilt from ``kernel_q`` whenever that
     changes)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
@@ -119,7 +119,7 @@ class _QDense(nn.Module):
         aligned = self.in_features % 128 == 0 and self.features % 128 == 0
         if calibrated and aligned and x.is_cuda:
             return int8_matmul_fused(x, self.kernel_q, self.scale, self.a_scale,
-                                     bias=self.bias, out_dtype=x.dtype)
+                                     bias=self.bias, out_dtype=x.dtype, w_kmajor=self.kernel_q_kmajor())
         y = int8_matmul(x, self.kernel_q, self.scale, x_scale=self.a_scale if calibrated else None)
         if self.bias is not None:
             y = y + self.bias

@@ -3,7 +3,8 @@
 The port of algonauts2025_tpu/ops/quant.py.  Weights are int8 per output
 column, activations int8 per row (dynamic) or by one calibrated static
 scale.  ``int8_matmul_fused`` (``csrc/w8a8.cu``) and ``int8_mlp_fused``
-(``csrc/int8_mlp.cu``) are the hand-written CUDA counterparts of the two
+(``csrc/int8_mlp.cu``), both over the int8 tensor-core GEMM of
+``csrc/int8_wgmma.cuh``, are the hand-written CUDA counterparts of the two
 Pallas kernels; each has its plain PyTorch version beside it
 (``*_plain``, same arguments), which the wrapper runs for CPU tensors
 only.  On a CUDA tensor the wrapper launches the kernel or raises.
@@ -45,17 +46,16 @@ launch_counts: dict[str, int] = {"w8a8": 0, "int8_mlp": 0}
 
 #: (library, entry point, argument types) of the two kernels' C interfaces
 _W8A8 = ("w8a8", "w8a8_forward", (
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p,
+    (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4
+    + (ctypes.c_void_p,)
 ))
 _INT8_MLP = ("int8_mlp", "int8_mlp_forward", (
     (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4
     + (ctypes.c_void_p,)
 ))
-#: the fused MLP's K and F must be multiples of this (the JAX wrapper's
-#: rule, and the kernel's 128-deep stages and 128-wide tiles)
-_MLP_ALIGN = 128
+#: the fused kernels' K and N (F) must be multiples of this (the JAX
+#: wrappers' rule, and the int8 core's 128-deep stages and 128-wide tiles)
+_ALIGN = 128
 
 
 def _static_scale(s, poison_if: torch.Tensor | None = None) -> torch.Tensor:
@@ -149,9 +149,12 @@ def int8_matmul_fused_plain(
     x_scale: torch.Tensor | float,
     bias: torch.Tensor | None = None,
     out_dtype: torch.dtype = torch.bfloat16,
+    *,
+    w_kmajor: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The plain version of ``int8_matmul_fused`` on any device, equal to
-    the kernel bit for bit."""
+    the kernel bit for bit; it reads the (K, N) weight and takes the
+    K-major copy only to share the kernel's arguments."""
     k, n = w_q.shape
     sx = _static_scale(x_scale).to(x.device)
     acc = _int_matmul(_quantize(x.float().reshape(-1, k), sx), w_q)
@@ -175,36 +178,51 @@ def int8_matmul_fused(
     x_scale: torch.Tensor | float,
     bias: torch.Tensor | None = None,
     out_dtype: torch.dtype = torch.bfloat16,
+    *,
+    w_kmajor: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Static-scale w8a8 dense: float x (..., K) @ int8 (K, N) + bias -> out_dtype.
 
     The kernel (CUDA tensors) or its plain version (CPU tensors); the two
     agree bit for bit.  ``x_scale`` is the calibrated static scale; 0
-    poisons the output with NaN."""
+    poisons the output with NaN.  K and N must be multiples of 128, as the
+    JAX wrapper requires.  The kernel reads its weight K-major:
+    ``w_kmajor`` is ``w_q.T`` (N, K), contiguous, required on a CUDA card
+    and ignored on the CPU."""
     lead = x.shape[:-1]
     k, n = w_q.shape
     if x.shape[-1] != k:
         raise ValueError(f"int8_matmul_fused: x has K={x.shape[-1]}, w_q is {tuple(w_q.shape)}")
+    if k % _ALIGN or n % _ALIGN:
+        raise ValueError(f"int8_matmul_fused needs 128-aligned dims, got K={k}, N={n}")
+    if w_kmajor is not None and tuple(w_kmajor.shape) != (n, k):
+        raise ValueError(
+            f"int8_matmul_fused: w_kmajor must be {(n, k)} (K-major), got {tuple(w_kmajor.shape)}"
+        )
     if x.device.type == "cpu":
         return int8_matmul_fused_plain(x, w_q, w_scale, x_scale, bias, out_dtype)
+    if w_kmajor is None:
+        raise ValueError("w8a8 kernel: w_kmajor (the K-major weight) is required")
     x2 = x.reshape(-1, k)
     sx = _static_scale(x_scale).to(x.device).reshape(1)
     bias, w_scale = _bias(bias, n, x.device), w_scale.float()
     _check_float("w8a8", x2, out_dtype)
-    _cuda.check_cuda("w8a8", contiguous=True, x=x2, w_q=w_q, w_scale=w_scale, bias=bias,
+    _cuda.check_cuda("w8a8", contiguous=True, x=x2, w_kmajor=w_kmajor, w_scale=w_scale, bias=bias,
                      x_scale=sx)
-    if w_q.dtype != torch.int8:
-        raise TypeError(f"w8a8 kernel: w_q must be int8, got {w_q.dtype}")
-    out = torch.empty((x2.shape[0], n), dtype=out_dtype, device=x.device)
+    if w_kmajor.dtype != torch.int8:
+        raise TypeError(f"w8a8 kernel: w_kmajor must be int8, got {w_kmajor.dtype}")
+    m = x2.shape[0]
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     codes = _cuda.DTYPE_CODES
     with torch.cuda.device(x.device):
         err = _cuda.function(*_W8A8)(
-            x2.data_ptr(), codes[x2.dtype], w_q.data_ptr(), w_scale.data_ptr(),
-            bias.data_ptr(), sx.data_ptr(), out.data_ptr(), codes[out_dtype],
-            x2.shape[0], n, k, torch.cuda.current_stream().cuda_stream,
+            x2.data_ptr(), codes[x2.dtype], w_kmajor.data_ptr(), w_scale.data_ptr(),
+            bias.data_ptr(), sx.data_ptr(), xq.data_ptr(), out.data_ptr(), codes[out_dtype],
+            m, n, k, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"w8a8 kernel launch failed: CUDA error {err} (M={x2.shape[0]}, K={k}, N={n})")
+        raise RuntimeError(f"w8a8 kernel launch failed: CUDA error {err} (M={m}, K={k}, N={n})")
     launch_counts["w8a8"] += 1
     return out.reshape(*lead, n)
 
@@ -289,7 +307,7 @@ def int8_mlp_fused(
         raise ValueError(
             f"int8_mlp_fused: x (..., {x.shape[-1]}), w1 {tuple(w1_q.shape)}, w2 {tuple(w2_q.shape)}"
         )
-    if k % _MLP_ALIGN or f % _MLP_ALIGN:
+    if k % _ALIGN or f % _ALIGN:
         raise ValueError(f"int8_mlp_fused needs 128-aligned dims, got K={k}, F={f}")
     for name, w, want in (("w1_kmajor", w1_kmajor, (f, k)), ("w2_kmajor", w2_kmajor, (k, f))):
         if w is not None and tuple(w.shape) != want:

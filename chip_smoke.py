@@ -13,13 +13,15 @@ Phases (any failure exits non-zero):
    gradients too); time the kernel, the plain version and one library
    call that computes the same function (a yardstick the port never
    calls): ``scaled_dot_product_attention`` for the attention kernels,
-   ``torch._int_mm`` plus the elementwise quant passes for the int8 ones
-   (and ``torch._int_mm`` alone beside the int8 MLP, the yardstick of its
-   GEMMs).  The trunk attention also runs a layout that takes its
-   one-element loads.  The flash kernels run bf16 on the tensor cores and
-   fp32 on the CUDA cores: each fp32 edge case has a bf16 twin, and the
-   SASS of every bf16 instantiation must hold ``HGMMA``, that of every
-   GEMM of the int8 MLP ``IGMMA``.  Two mutants of the masked flash
+   ``torch._int_mm`` plus the elementwise quant passes for the int8 ones,
+   with the K-major weight copy seen as (K, N) (and ``torch._int_mm``
+   alone in both weight layouts, the yardstick of their GEMMs).  The
+   trunk attention also runs a layout that takes its one-element loads.
+   The flash kernels run bf16 on the tensor cores and fp32 on the CUDA
+   cores: each fp32 edge case has a bf16 twin, and the SASS of every bf16
+   instantiation must hold ``HGMMA``, that of every GEMM of the two int8
+   kernels ``IGMMA``; the w8a8 kernel must refuse an unaligned K without
+   a launch.  Two mutants of the masked flash
    kernel, built from patched copies of its source under
    ``_build/mutants`` (one ignores the key lengths, one ignores
    ``causal``), must fail the same check.  The bench-only fast
@@ -232,22 +234,29 @@ def sass_functions(library: Path) -> list[tuple[str, str]]:
     return [tuple(f.split(None, 1)) for f in re.split(r"\n\s*Function : ", sass)[1:]]
 
 
-def check_sass(flash_library: Path, mlp_library: Path) -> None:
+#: the GEMM instantiations of the int8 core in each int8 kernel's library:
+#: one per epilogue (w8a8: dequant by sx to fp32 and bf16; the MLP: fc1's
+#: gelu/requant, fc2's dequant by sh to fp32 and bf16)
+INT8_GEMMS = {"w8a8": 2, "int8_mlp": 3}
+
+
+def check_sass(flash_library: Path, int8_libraries: dict[str, Path]) -> None:
     """The tensor-core kernels run their products as warpgroup MMAs: each
     bf16 instantiation of ``flash_tc_kernel`` holds HGMMA instructions, and
     each GEMM instantiation of the int8 core (``int8_wgmma.cuh``
-    ``gemm_kernel``, one per epilogue) holds IGMMA, the SASS of
+    ``gemm_kernel``) in each int8 kernel's library holds IGMMA, the SASS of
     ``wgmma.mma_async ... .s32.s8.s8``."""
     hgmma = {tuple(int(x) for x in re.findall(r"L[ib](\d+)E", name.split("flash_tc_kernel", 1)[1])[:3]):
              body.count("HGMMA") for name, body in sass_functions(flash_library) if "flash_tc_kernel" in name}
     log(f"SASS of {flash_library.name}: HGMMA per bf16 instantiation (head dim, masked, bf16 scores) {hgmma}")
     if len(hgmma) != 6 or not all(hgmma.values()):
         raise SystemExit("the bf16 flash instantiations do not all run wgmma (HGMMA)")
-    igmma = {re.search(r"(StoreGeluQuant|StoreDequantI\w+?E)E", name).group(1): body.count("IGMMA")
-             for name, body in sass_functions(mlp_library) if "gemm_kernel" in name}
-    log(f"SASS of {mlp_library.name}: IGMMA per int8 GEMM instantiation (epilogue) {igmma}")
-    if len(igmma) != 3 or not all(igmma.values()):
-        raise SystemExit("the int8 GEMM instantiations do not all run wgmma (IGMMA)")
+    for name, library in int8_libraries.items():
+        igmma = {re.search(r"(StoreGeluQuant|StoreDequantI\w+?E)E", fn).group(1): body.count("IGMMA")
+                 for fn, body in sass_functions(library) if "gemm_kernel" in fn}
+        log(f"SASS of {library.name}: IGMMA per int8 GEMM instantiation (epilogue) {igmma}")
+        if len(igmma) != INT8_GEMMS[name] or not all(igmma.values()):
+            raise SystemExit(f"the int8 GEMM instantiations of {name} do not all run wgmma (IGMMA)")
 
 
 def qkv(shape, dtype, strided: bool, gen: torch.Generator, device="cuda"):
@@ -343,52 +352,80 @@ def absmax_scale(x: torch.Tensor) -> torch.Tensor:
     return (x.float().abs().amax() / 127.0).reshape(())
 
 
+def w8a8_case(m, k, n, x_dtype, gen):
+    """x, the weight with its K-major copy, scale and bias of one dense."""
+    x = torch.randn((m, k), generator=gen, device="cuda").to(x_dtype)
+    w_q, w_s = int8_dense(k, n, gen)
+    bias = 0.1 * torch.randn(n, generator=gen, device="cuda")
+    return x, w_q, w_s, absmax_scale(x), bias, w_q.t().contiguous()
+
+
 def check_w8a8(peaks: dict[str, float]) -> dict:
-    """Kernel B against its plain version: exact equality."""
+    """Kernel B against its plain version: exact equality.  An unaligned K
+    must raise before any launch."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     main_err = None
-    for m, k, n, out_dtype in [(VITG_M, VITG_D, VITG_D, torch.bfloat16),
-                               (130, 384, 640, torch.float32), (1, 128, 128, torch.bfloat16)]:
-        x = rand_bf16((m, k), gen)
-        w_q, w_s = int8_dense(k, n, gen)
-        bias = 0.1 * torch.randn(n, generator=gen, device="cuda")
-        sx = absmax_scale(x)
-        out = quant.int8_matmul_fused(x, w_q, w_s, sx, bias=bias, out_dtype=out_dtype)
+    # ViT-G; fp32 out; one row and one 128-deep stage; a ragged M with an N
+    # of three 128-wide tiles; fp32 x
+    for m, k, n, x_dtype, out_dtype in [(VITG_M, VITG_D, VITG_D, torch.bfloat16, torch.bfloat16),
+                                        (130, 384, 640, torch.bfloat16, torch.float32),
+                                        (1, 128, 128, torch.bfloat16, torch.bfloat16),
+                                        (300, 1408, 384, torch.bfloat16, torch.bfloat16),
+                                        (130, 384, 640, torch.float32, torch.float32)]:
+        x, w_q, w_s, sx, bias, w_t = w8a8_case(m, k, n, x_dtype, gen)
+        out = quant.int8_matmul_fused(x, w_q, w_s, sx, bias=bias, out_dtype=out_dtype, w_kmajor=w_t)
         torch.cuda.synchronize()
         ref = quant.int8_matmul_fused_plain(x, w_q, w_s, sx, bias=bias, out_dtype=out_dtype)
         err = (out.float() - ref.float()).abs().max().item()
         ok = out.dtype == out_dtype and torch.equal(out, ref)
-        log(f"w8a8 ({m}, {k}, {n}) -> {str(out_dtype)[6:]}: max_abs_err {err:.3e} "
+        log(f"w8a8 ({m}, {k}, {n}) {str(x_dtype)[6:]} -> {str(out_dtype)[6:]}: max_abs_err {err:.3e} "
             f"(exact equality) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit("the w8a8 kernel is not equal to its plain version")
         if m == VITG_M:
             main_err = err
-    poisoned = quant.int8_matmul_fused(x, w_q, w_s, torch.zeros((), device="cuda"), bias=bias)
+    poisoned = quant.int8_matmul_fused(x, w_q, w_s, torch.zeros((), device="cuda"), bias=bias, w_kmajor=w_t)
     if not torch.isnan(poisoned).all():
         raise SystemExit("the w8a8 kernel did not poison a_scale = 0 with NaN")
     log("w8a8 a_scale = 0: all NaN ok")
+    x, w_q, w_s, sx, bias, w_t = w8a8_case(64, 192, 128, torch.bfloat16, gen)
+    before = quant.launch_counts["w8a8"]
+    try:
+        quant.int8_matmul_fused(x, w_q, w_s, sx, bias=bias, w_kmajor=w_t)
+        refused = False
+    except ValueError:
+        refused = True
+    log(f"w8a8 (64, 192, 128) refused with ValueError: {refused}, launches "
+        f"{quant.launch_counts['w8a8'] - before}")
+    if not refused or quant.launch_counts["w8a8"] != before:
+        raise SystemExit("the w8a8 kernel took an unaligned K")
 
     m, k, n = VITG_M, VITG_D, VITG_D
-    x = rand_bf16((m, k), gen)
-    w_q, w_s = int8_dense(k, n, gen)
-    bias = 0.1 * torch.randn(n, generator=gen, device="cuda")
-    sx = absmax_scale(x)
+    x, w_q, w_s, sx, bias, w_t = w8a8_case(m, k, n, torch.bfloat16, gen)
     sxs = quant._static_scale(sx)
 
-    def library():
+    def library(w):
         xq = torch.clamp(torch.round(x.float() / sxs), -127, 127).to(torch.int8)
-        return (torch._int_mm(xq, w_q).float() * (sxs * w_s) + bias).to(torch.bfloat16)
+        return (torch._int_mm(xq, w).float() * (sxs * w_s) + bias).to(torch.bfloat16)
 
-    kernel_ms = time_ms(lambda: quant.int8_matmul_fused(x, w_q, w_s, sx, bias=bias))
+    def kernel():
+        return quant.int8_matmul_fused(x, w_q, w_s, sx, bias=bias, w_kmajor=w_t)
+
+    kernel_ms = time_ms(kernel)
     plain_ms = time_ms(lambda: quant.int8_matmul_fused_plain(x, w_q, w_s, sx, bias=bias), iters=5)
-    library_ms = time_ms(library)
+    library_ms = time_ms(lambda: library(w_t.t()))
+    library_rm_ms = time_ms(lambda: library(w_q))
     ops = 2 * m * k * n
     nbytes = m * k * 2 + k * n + 8 * n + m * n * 2
     bound_ms, bound_by = bound(ops, nbytes, peaks["int8"], peaks)
-    log(f"w8a8 ({m}, {k}, {n}) bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"_int_mm + quant passes {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+    log(f"w8a8 ({m}, {k}, {n}) bf16: kernel {kernel_ms:.4f} ms ({ops / kernel_ms / 1e9:.1f} TOP/s, "
+        f"{bound_ms / kernel_ms:.3f} of the bound), plain {plain_ms:.4f} ms, _int_mm + quant passes "
+        f"{library_ms:.4f} ms with the K-major copy as (K, N) ({ops / library_ms / 1e9:.1f} TOP/s), "
+        f"{library_rm_ms:.4f} ms with the (K, N) row-major weight, bound {bound_ms:.4f} ms "
         f"({ops / 1e9:.1f} GOP, {nbytes / 1e6:.1f} MB)")
+    xq = torch.clamp(torch.round(x.float() / sxs), -127, 127).to(torch.int8)
+    time_int_mm("w8a8", xq, {"(K, N) row-major": w_q, "K-major copy as (K, N)": w_t.t()})
+    profile_run("w8a8 x 10 at ViT-G", lambda: [kernel() for _ in range(10)], 10 * kernel_ms, top=4)
     return kernel_record("w8a8", "w8a8.cu", "algonauts2025_tpu/ops/quant.py:107 (_fused_w8a8_kernel)",
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
 
@@ -1066,6 +1103,9 @@ TEXT_LIMITS = {torch.bfloat16: (0.998, 8e-2), torch.float32: (0.9999999, 1e-4)}
 def text_path(n_words: int = 1280, batch_size: int = 8, context_cap: int = 1024) -> dict:
     """The text path at full Llama-3.2-3B width and depth through the kernel."""
     cfg = LLAMA_3P2_3B
+    # free the video path's ViT-G (held in a reference cycle), so that the
+    # peak is this path's
+    gc.collect()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     t0 = time.perf_counter()
     model = LlamaBackbone(cfg, device="cuda").init_random(gen)
@@ -1422,7 +1462,7 @@ def main() -> None:
     peaks = peaks_for(kind)
     torch.manual_seed(SEED)
     mutants = build_kernels()
-    check_sass(_cuda.build("flash_attention"), _cuda.build("int8_mlp"))
+    check_sass(_cuda.build("flash_attention"), {name: _cuda.build(name) for name in INT8_GEMMS})
     kernels = [check_attention(peaks), check_flash(peaks), check_flash_masked(peaks, mutants),
                check_fast(peaks), check_packed(peaks), check_w8a8(peaks), check_int8_mlp(peaks)]
     check_small_against_cpu()

@@ -7,6 +7,8 @@ them.  The CUDA kernels are held against the plain versions on the card
 by chip_smoke.py.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,6 +81,65 @@ def test_int8_matmul_fused_plain_equals_pallas(rng, m, k, n, out_dtype):
                                bias=torch.from_numpy(bias), out_dtype=getattr(torch, out_dtype))
     assert got.dtype == getattr(torch, out_dtype)
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+
+
+def _w8a8_inputs(rng, m, k, n):
+    """bf16 x, int8 weight, scales and bias of one dense as (jax args,
+    torch args), and the static scale sx."""
+    xj, xt = _bf16(rng, (m, k))
+    w_q, w_s = jq.quantize_weight(rng.standard_normal((k, n)).astype(np.float32) * 0.05)
+    bias = rng.standard_normal((n,)).astype(np.float32)
+    sx = np.float32(np.abs(np.asarray(xj, np.float32)).max() / 127.0)
+    jax_args = (xj, w_q, w_s, jnp.float32(sx))
+    torch_args = (xt, torch.tensor(np.asarray(w_q)), torch.tensor(np.asarray(w_s)), torch.tensor(sx))
+    return jax_args, torch_args, bias
+
+
+@pytest.mark.parametrize("k,n", [(192, 128), (128, 192), (128, 100)])
+def test_int8_matmul_fused_refuses_unaligned_dims_as_jax(rng, k, n):
+    """Both wrappers refuse a K or N that is not a multiple of 128."""
+    jax_args, torch_args, bias = _w8a8_inputs(rng, 8, k, n)
+    with pytest.raises(ValueError, match="128-aligned dims"):
+        jq.int8_matmul_fused(*jax_args, bias=jnp.asarray(bias), interpret=True)
+    with pytest.raises(ValueError, match="128-aligned dims"):
+        tq.int8_matmul_fused(*torch_args, bias=torch.from_numpy(bias))
+
+
+def test_int8_matmul_fused_refuses_kmajor_of_wrong_shape(rng):
+    _, torch_args, bias = _w8a8_inputs(rng, 8, 128, 256)
+    w_q, bias = torch_args[1], torch.from_numpy(bias)
+    with pytest.raises(ValueError, match="w_kmajor must be"):
+        tq.int8_matmul_fused(*torch_args, bias=bias, w_kmajor=w_q)  # the (K, N) layout
+    out = tq.int8_matmul_fused(*torch_args, bias=bias, w_kmajor=w_q.T.contiguous())
+    assert torch.equal(out, tq.int8_matmul_fused_plain(*torch_args, bias=bias))
+
+
+def test_int8_matmul_fused_plain_with_kmajor_equals_pallas(rng):
+    """The plain version, called as the backbone calls the kernel (with the
+    K-major copy), equals the Pallas kernel in interpret mode exactly at a
+    ragged M and an N of three 128-wide tiles."""
+    jax_args, torch_args, bias = _w8a8_inputs(rng, 45, 128, 384)
+    ref = jq.int8_matmul_fused(*jax_args, bias=jnp.asarray(bias), out_dtype=jnp.float32, interpret=True)
+    got = tq.int8_matmul_fused_plain(*torch_args, bias=torch.from_numpy(bias), out_dtype=torch.float32,
+                                     w_kmajor=torch_args[1].T.contiguous())
+    assert got.shape == (45, 384)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_csrc_includes_resolve_and_the_dp4a_core_is_gone():
+    """Every quoted #include of csrc/ names a file there, and no source
+    names the deleted __dp4a core."""
+    sources = sorted(_cuda.CSRC.glob("*.cu")) + sorted(_cuda.CSRC.glob("*.cuh"))
+    assert {p.name for p in sources} >= {"w8a8.cu", "int8_mlp.cu", "int8_wgmma.cuh"}
+    includes = {}
+    for path in sources:
+        text = path.read_text()
+        assert "int8_gemm.cuh" not in text, path.name
+        includes[path.name] = re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, flags=re.M)
+        for name in includes[path.name]:
+            assert (_cuda.CSRC / name).is_file(), (path.name, name)
+    assert not (_cuda.CSRC / "int8_gemm.cuh").exists()
+    assert includes["w8a8.cu"] == includes["int8_mlp.cu"] == ["int8_wgmma.cuh"]
 
 
 def test_int8_matmul_fused_poisons_uncalibrated_scale(rng):
