@@ -1,4 +1,5 @@
-"""Frozen-feature extraction of the port (device side)."""
+"""Features of the port: the pydantic features (host side, cached per item)
+and the frozen backbones' device sides."""
 
 from .audio import (
     TinyAudioBackbone,
@@ -7,7 +8,11 @@ from .audio import (
     load_audio_backbone,
     mono_zscore,
 )
+from .base import FeatureBase, LayeredFeatureBase
+from .neuro import Fmri
+from .subject import SubjectEncoder
 from .text import (
+    LLAMA3p2,
     HashTokenizer,
     TinyTextBackbone,
     TorchTextBackbone,
@@ -23,6 +28,11 @@ from .video import (
 )
 
 __all__ = [
+    "FeatureBase",
+    "LayeredFeatureBase",
+    "Fmri",
+    "SubjectEncoder",
+    "LLAMA3p2",
     "TinyAudioBackbone",
     "TorchAudioBackbone",
     "encode_sound_stream",

@@ -10,9 +10,9 @@ length of the word caps the token span), pooled on the device.  Rolling
 contexts that are nested prefixes of each other run as one forward over
 the longest prefix (a chain); the rest run as padded batches.
 
-The pydantic ``LLAMA3p2`` feature, its cache uid and ``Word`` events are
-host layers that are not ported yet (ROADMAP queue 1 item 11):
-``encode_word_stream`` takes ``(text, context)`` pairs directly.
+``encode_word_stream`` is the device side and takes ``(text, context)``
+pairs; the pydantic ``LLAMA3p2`` feature runs it over ``Word`` events and
+caches each word's (L+1, D) stack under its ``"{text}_{context}"`` uid.
 """
 
 from __future__ import annotations
@@ -23,18 +23,24 @@ import re
 import typing as tp
 
 import numpy as np
+import pydantic
 import torch
 
+from ..core.events import Event, Word
+from ..core.timed import TimedArray
 from ..models.backbones.llama import LlamaBackbone, LlamaConfig, params_from_hf
 from ..runtime import default_device
+from .base import LayeredFeatureBase
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
+    "LLAMA3p2",
     "TorchTextBackbone",
     "TinyTextBackbone",
     "HashTokenizer",
     "load_text_backbone",
+    "load_hf_text_backbone",
     "encode_word_stream",
 ]
 
@@ -343,15 +349,37 @@ def load_text_backbone(
     return TorchTextBackbone(model, tokenizer, pad_id, device=device)
 
 
+def load_hf_text_backbone(
+    model_name: str, device: str | torch.device | None = None
+) -> TorchTextBackbone:
+    """The bf16 backbone of a named HF checkpoint (``AutoModel`` and its
+    tokenizer), read from the local HF cache only: nothing is downloaded."""
+    from transformers import AutoModel, AutoTokenizer
+
+    tokenizer = AutoTokenizer.from_pretrained(
+        model_name, truncation_side="left", local_files_only=True
+    )
+    hf_model = AutoModel.from_pretrained(model_name, local_files_only=True)
+    pad_id = tokenizer.pad_token_id
+    if pad_id is None:  # `or` would discard a legitimate pad id of 0
+        pad_id = tokenizer.eos_token_id
+    return load_text_backbone(
+        hf_model.state_dict(), hf_model.config.to_dict(), tokenizer, pad_id, device=device
+    )
+
+
 def _chain_runs(
-    backbone: TorchTextBackbone, words: tp.Sequence[tuple[str, str]], max_context_tokens: int
+    backbone: TorchTextBackbone,
+    words: tp.Sequence[tuple[str, str]],
+    max_context_tokens: int,
+    min_chain: int = MIN_CHAIN,
 ) -> list[list]:
     """Split ``words`` into maximal nested-prefix token-chain runs.
 
     Returns [is_chain, words, tokens] groups in order.  A run chains while
     each context's token ids extend the previous word's ids (true for
     rolling contexts until the left-truncation kicks in) and stays within
-    max_context_tokens.  Chain runs shorter than MIN_CHAIN are demoted and
+    max_context_tokens.  Chain runs shorter than ``min_chain`` are demoted and
     merged into the neighboring batched runs."""
     raw: list[list] = []
     cur_w: list = []
@@ -380,7 +408,7 @@ def _chain_runs(
         raw.append([True, cur_w, cur_t])
     merged: list[list] = []
     for is_chain, ws, ts in raw:
-        is_chain = is_chain and len(ws) >= MIN_CHAIN
+        is_chain = is_chain and len(ws) >= min_chain
         if merged and not merged[-1][0] and not is_chain:
             merged[-1][1].extend(ws)
             merged[-1][2].extend(ts)
@@ -416,23 +444,125 @@ def encode_word_stream(
     words: tp.Sequence[tuple[str, str]],
     batch_size: int = 8,
     max_context_tokens: int = 1024,
+    min_chain: int = MIN_CHAIN,
+    chain_chunk: int = CHAIN_CHUNK,
 ) -> tp.Iterator[np.ndarray]:
     """Per-word (L+1, D) float32 features of ``(text, context)`` pairs, in order.
 
     The device side of the JAX package's ``LLAMA3p2._compute``: nested-
-    prefix chain runs of at least MIN_CHAIN words go through one forward
-    per CHAIN_CHUNK words over the chunk's longest context; the rest in
+    prefix chain runs of at least ``min_chain`` words go through one
+    forward per ``chain_chunk`` words over the chunk's longest context; the rest in
     padded batches of ``batch_size`` (contexts left-truncated to
     ``max_context_tokens``).  An empty context stands for the word itself."""
-    for is_chain, run, toks in _chain_runs(backbone, words, max_context_tokens):
+    for is_chain, run, toks in _chain_runs(backbone, words, max_context_tokens, min_chain):
         if not is_chain:
             yield from _batched(backbone, run, toks, batch_size, max_context_tokens)
             continue
         spans = [len(w[0]) for w in run]
 
         def chain_dispatches(toks=toks, spans=spans):
-            for k in range(0, len(toks), CHAIN_CHUNK):
-                sub_t = toks[k : k + CHAIN_CHUNK]
-                yield backbone.pooled_states_chain_async(sub_t, spans[k : k + CHAIN_CHUNK]), len(sub_t)
+            for k in range(0, len(toks), chain_chunk):
+                sub_t = toks[k : k + chain_chunk]
+                yield backbone.pooled_states_chain_async(sub_t, spans[k : k + chain_chunk]), len(sub_t)
 
         yield from _pipelined_columns(chain_dispatches())
+
+
+class LLAMA3p2(LayeredFeatureBase):
+    """Word-level Llama feature on the 2 Hz grid (the JAX package's config
+    surface and cache uids)."""
+
+    name: tp.Literal["LLAMA3p2"] = "LLAMA3p2"
+    model_name: str = "meta-llama/Llama-3.2-3B"
+    batch_size: int = 8
+    max_context_tokens: int = 1024
+    #: >1 stage-shards the backbone's layer stack over that many devices
+    #: (not ported yet); device topology, not semantics: excluded from the
+    #: cache uid like ``device``
+    pipeline_stages: int = 0
+
+    event_type: tp.ClassVar[str] = "Word"
+    frequency: tp.ClassVar[float] = 2.0
+    MIN_CHAIN: tp.ClassVar[int] = MIN_CHAIN
+    CHAIN_CHUNK: tp.ClassVar[int] = CHAIN_CHUNK
+
+    _backbone: TorchTextBackbone | None = pydantic.PrivateAttr(default=None)
+
+    def _exclude_from_cache_uid(self) -> list[str]:
+        return [
+            "device", "layers", "layer_aggregation", "batch_size",
+            "pipeline_stages",
+        ]
+
+    @staticmethod
+    def item_uid(event: Event) -> str:
+        # the reference's cache key, kept verbatim for cache parity; it is
+        # ambiguous when a word itself contains "_" (transcripts hold none)
+        return f"{event.text}_{event.context}"  # type: ignore[attr-defined]
+
+    def set_backbone(self, backbone: TorchTextBackbone) -> None:
+        self._backbone = backbone
+        self._backbone_owned = False
+
+    @property
+    def backbone(self) -> TorchTextBackbone:
+        if self._backbone is None:
+            if self.pipeline_stages > 1:
+                raise NotImplementedError(
+                    "pipeline_stages > 1: stage-sharding the Llama layer stack is not "
+                    "ported yet (ROADMAP queue 1 item 6, parallel strategies)"
+                )
+            device = self.torch_device()
+            if self.model_name == "tiny-random":
+                self._backbone = TinyTextBackbone(device=device)
+            else:
+                try:
+                    self._backbone = load_hf_text_backbone(self.model_name, device=device)
+                except Exception as e:
+                    # never substitute random weights for a named model: the
+                    # cache is keyed by this config's uid, so a fallback
+                    # would poison it
+                    raise RuntimeError(
+                        f"Could not load text backbone {self.model_name!r}; "
+                        "refusing to substitute random weights under the same "
+                        "cache identity (use model_name='tiny-random' for "
+                        "offline runs)"
+                    ) from e
+            self._backbone_owned = True
+        return self._backbone
+
+    def _chain_runs(self, backbone: TorchTextBackbone, events: tp.Sequence[Word]) -> list[list]:
+        """[is_chain, (text, context) pairs, token ids] runs of ``events``."""
+        return _chain_runs(backbone, _pairs(events), self.max_context_tokens, self.MIN_CHAIN)
+
+    def _compute(self, events: tp.Sequence[Word]) -> tp.Iterator[np.ndarray]:
+        yield from encode_word_stream(
+            self.backbone, _pairs(events), batch_size=self.batch_size,
+            max_context_tokens=self.max_context_tokens, min_chain=self.MIN_CHAIN,
+            chain_chunk=self.CHAIN_CHUNK,
+        )
+
+    def _compute_batched(
+        self, backbone: TorchTextBackbone, events: tp.Sequence[Word]
+    ) -> tp.Iterator[np.ndarray]:
+        """Every event through the padded-batch path (the chain path's
+        reference)."""
+        words = _pairs(events)
+        toks = backbone.chain_tokenize([c or t for t, c in words])
+        yield from _batched(backbone, words, toks, self.batch_size, self.max_context_tokens)
+
+    def _get_timed_arrays(
+        self, events: list[Word], start: float, duration: float
+    ) -> tp.Iterable[TimedArray]:
+        for event, latent in zip(events, self._get_data(events)):
+            latent = self._aggregate_layers(np.asarray(latent))
+            yield TimedArray(
+                frequency=0,
+                duration=event.duration,
+                start=event.start,
+                data=latent,
+            )
+
+
+def _pairs(events: tp.Sequence[Word]) -> list[tuple[str, str]]:
+    return [(e.text, e.context) for e in events]

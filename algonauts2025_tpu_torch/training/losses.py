@@ -9,9 +9,10 @@ from __future__ import annotations
 
 import typing as tp
 
+import pydantic
 import torch
 
-__all__ = ["mse_loss", "pearson_loss", "build_loss"]
+__all__ = ["LossConfig", "mse_loss", "pearson_loss", "build_loss"]
 
 LossFn = tp.Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -46,8 +47,43 @@ def pearson_loss(
     return torch.mean(per_column)
 
 
-def build_loss(config: tp.Mapping[str, tp.Any]) -> LossFn:
-    """``{"name": "MSELoss"}`` or ``{"name": "PearsonLoss", "dim": ..., "reduction": ...}``."""
+#: the JAX package's torch-style loss names (its config surface); only
+#: MSELoss builds here
+_TORCH_STYLE_NAMES = (
+    "MSELoss", "L1Loss", "HuberLoss", "SmoothL1Loss", "BCELoss", "BCEWithLogitsLoss",
+    "KLDivLoss", "PoissonNLLLoss", "CrossEntropyLoss", "SoftMarginLoss", "NLLLoss",
+    "MarginRankingLoss", "HingeEmbeddingLoss", "MultiLabelSoftMarginLoss", "GaussianNLLLoss",
+    "CosineEmbeddingLoss", "TripletMarginLoss", "MultiMarginLoss", "MultiLabelMarginLoss",
+    "CTCLoss",
+)
+
+
+class PearsonLossConfig(pydantic.BaseModel):
+    model_config = pydantic.ConfigDict(extra="forbid")
+    name: tp.Literal["PearsonLoss"] = "PearsonLoss"
+    reduction: str = "mean"
+    dim: int = 1
+
+
+class TorchLossConfig(pydantic.BaseModel):
+    """Reference-style name + kwargs for standard regression losses."""
+
+    model_config = pydantic.ConfigDict(extra="forbid")
+    name: tp.Literal[_TORCH_STYLE_NAMES]  # type: ignore[valid-type]
+    kwargs: dict[str, tp.Any] = {}
+
+
+#: the ``Experiment.loss`` field: the JAX package's discriminated union
+LossConfig = tp.Annotated[
+    tp.Union[PearsonLossConfig, TorchLossConfig], pydantic.Field(discriminator="name")
+]
+
+
+def build_loss(config: tp.Any) -> LossFn:
+    """``{"name": "MSELoss"}`` or ``{"name": "PearsonLoss", "dim": ..., "reduction": ...}``,
+    as a dict or a ``LossConfig``."""
+    if isinstance(config, pydantic.BaseModel):
+        config = config.model_dump()
     cfg = dict(config)
     name = cfg.pop("name", None)
     if name == "MSELoss":

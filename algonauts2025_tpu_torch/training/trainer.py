@@ -101,6 +101,8 @@ class BrainTrainer:
         self._swa_count = 0
         self._best: float | None = None  # monitor state, persisted in ckpts
         self._bad_epochs = 0
+        #: per-epoch record sink (``experiment.tracking.RunLogger``), if set
+        self._logger: tp.Any = None
 
     # -- initialization ---------------------------------------------------
     def init_state(self, example_batch: SegmentData, total_steps: int) -> None:
@@ -223,6 +225,8 @@ class BrainTrainer:
             self.callback_metrics.update(
                 {k: v for k, v in record.items() if isinstance(v, (int, float))}
             )
+            if self._logger is not None:
+                self._logger.log(record, step=self.step)
             logger.info(
                 "epoch %d: loss=%.5f %s lr=%.2e (%.1fs)", epoch, train_loss,
                 " ".join(f"{k}={v:.4f}" for k, v in val_metrics.items() if isinstance(v, float)),

@@ -33,7 +33,11 @@ Phases (any failure exits non-zero):
    (512 tokens, right-padded, so the masked flash kernel dispatches) and a
    small fp32 w2v-BERT (48 kHz chunks through the bucketed, pad-masked
    audio path) must give the same features on the card as on the CPU from
-   the same weights.
+   the same weights.  Host batches of the flagship's shapes go through
+   ``data.prefetch_to_device`` (the Experiment's feed: a producer thread,
+   pinned ``non_blocking`` copies) and must arrive on the card unchanged;
+   ``to_device`` must leave them where they are, and an early stop must end
+   the producer thread.
 4. The trunk's main path at full width: ``BrainTrainer`` on the flagship
    FmriEncoder configured as ``bench.py``'s ``bench_train`` (0.94 B
    params, batch 16 x 298 steps, remat, InfoNCE, bf16-mu Adam, OneCycle),
@@ -88,6 +92,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -95,7 +100,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from algonauts2025_tpu_torch.data import SegmentData
+from algonauts2025_tpu_torch.data import SegmentData, prefetch_to_device, to_device
 from algonauts2025_tpu_torch.features.audio import (
     TARGET_SR, TorchAudioBackbone, encode_sound_stream, mono_zscore,
 )
@@ -1406,6 +1411,43 @@ def check_small_against_cpu() -> None:
         raise SystemExit("the small trunk on the card disagrees with the CPU")
 
 
+def check_prefetch(n_batches: int = 3) -> None:
+    """Host batches of the flagship's shapes through ``prefetch_to_device``
+    onto the card: equal on arrival, kept by ``to_device``; an early stop
+    of the consumer ends the producer thread."""
+    rng = np.random.default_rng(SEED)
+    b, t = 16, 298
+    host = []
+    for _ in range(n_batches):
+        data = {m: rng.random((b, n_layers, d, t), dtype=np.float32)
+                for m, (n_layers, d) in FLAGSHIP_DIMS.items()}
+        data["subject_id"] = rng.integers(0, 4, (b, 1))
+        data["fmri"] = rng.random((b, 1000, 100), dtype=np.float32)
+        host.append(SegmentData(data=data, segments=[None] * b))
+    nbytes = sum(v.nbytes for v in host[0].data.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = list(prefetch_to_device(iter(host), "cuda"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for batch, ref in zip(got, host):
+        for key, value in ref.data.items():
+            if not (batch.data[key].is_cuda and torch.equal(batch.data[key].cpu(),
+                                                            torch.from_numpy(value))):
+                raise SystemExit(f"prefetch_to_device changed {key!r} on its way to the card")
+    if to_device(got[0].data, "cuda")["fmri"] is not got[0].data["fmri"]:
+        raise SystemExit("to_device copied a batch that was already on the card")
+    before = threading.active_count()
+    stream = prefetch_to_device(iter(host), "cuda", size=1)
+    next(stream)
+    stream.close()
+    if threading.active_count() > before:
+        raise SystemExit("prefetch_to_device left its producer thread running")
+    log(f"prefetch_to_device: {n_batches} flagship host batches of {nbytes / 1e6:.1f} MB "
+        f"onto the card in {seconds:.3f} s ({n_batches * nbytes / seconds / 1e9:.2f} GB/s "
+        "with the host's pinning), equal on arrival")
+
+
 def main_path(n_steps: int = 5, n_eval: int = 2, n_predict: int = 1) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     b, t = 16, 298
@@ -1469,6 +1511,7 @@ def main() -> None:
     check_small_backbone_against_cpu()
     check_small_llama_against_cpu()
     check_small_audio_against_cpu()
+    check_prefetch()
     run = main_path()
     log(f"trunk path: median step {run['step_s']:.4f} s, peak {run['peak_gb']:.2f} GB, "
         f"{run['n_params']} params on {name_and_limit}")
