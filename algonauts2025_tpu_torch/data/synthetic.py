@@ -16,6 +16,7 @@ from pathlib import Path
 import numpy as np
 
 from ..data.algonauts import TR_SECONDS
+from ..io import hdf5
 
 _WORDS = (
     "the quick brown fox jumps over a lazy dog while rain falls on green "
@@ -98,8 +99,6 @@ def make_synthetic_study(
     BOLD is generated as a noisy linear readout of a word-rate signal so a
     working model can achieve nontrivial Pearson r on it.
     """
-    import h5py
-
     rng = np.random.default_rng(seed)
     study_path = Path(root) / "algonauts2025"
     comp = study_path / "download" / "algonauts_2025.competitors"
@@ -135,19 +134,22 @@ def make_synthetic_study(
             "atlas-Schaefer18_parcel-1000Par7Net"
         )
         h5path = func / f"{stem}_desc-s123456_bold.h5"
-        with h5py.File(h5path, "a") as f:
-            for season, chunk, split in episodes:
-                if split == "test":
-                    continue
-                key = f"ses-001_task-{int(season):02d}{chunk}"
-                if key in f:
-                    continue
-                # (time, parcels): noisy projection of a smooth latent
-                latent = rng.standard_normal((n_tr, 8)).cumsum(axis=0)
-                latent -= latent.mean(0)
-                proj = rng.standard_normal((8, n_parcels))
-                bold = latent @ proj + 0.5 * rng.standard_normal((n_tr, n_parcels))
-                f.create_dataset(key, data=bold.astype(np.float32))
+        present = set(hdf5.keys(h5path)) if h5path.exists() else set()
+        new: dict[str, np.ndarray] = {}
+        for season, chunk, split in episodes:
+            if split == "test":
+                continue
+            key = f"ses-001_task-{int(season):02d}{chunk}"
+            if key in present or key in new:
+                continue
+            # (time, parcels): noisy projection of a smooth latent
+            latent = rng.standard_normal((n_tr, 8)).cumsum(axis=0)
+            latent -= latent.mean(0)
+            proj = rng.standard_normal((8, n_parcels))
+            bold = latent @ proj + 0.5 * rng.standard_normal((n_tr, n_parcels))
+            new[key] = bold.astype(np.float32)
+        if new or not h5path.exists():
+            hdf5.write(h5path, new, mode="a")
     # test target sample numbers for the submission writer; season-7 test
     # timelines exist for every release subject (they need no BOLD)
     for subject in ["sub-01", "sub-02", "sub-03", "sub-05"]:

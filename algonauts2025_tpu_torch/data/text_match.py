@@ -3,7 +3,8 @@
 Replaces the reference's spacy + Levenshtein pipeline (reference
 data_utils/data_utils/utils.py:25-59 match_list, enhancers.py:499-594
 _match_text_words) with a self-contained rule-based sentence segmenter and
-the same editops-based alignment.  All host-side, offline preprocessing.
+the same editops-based alignment (data/levenshtein.py gives the
+Levenshtein package's opcodes without it).  All host-side, offline preprocessing.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import re
 import typing as tp
 
 import numpy as np
+
+from .levenshtein import opcodes
 
 __all__ = ["match_list", "split_sentences", "tokenize", "match_text_words", "Token"]
 
@@ -67,8 +70,6 @@ def match_list(A, B, on_replace: str = "delete"):
     """
     if on_replace not in ("delete", "keep"):
         raise NotImplementedError(f"unknown on_replace={on_replace!r}")
-    from Levenshtein import opcodes
-
     if not isinstance(A, str):
         A, B = _encode_as_text(A, B)
     keep = {"equal"} | ({"replace"} if on_replace == "keep" else set())

@@ -4,11 +4,6 @@ Rebuild of reference algonauts2025/main.py:63-203 (class Data): builds the
 event table, assigns the 90/10 chunk-level train/val split with the
 deterministic hash splitter, prepares features (bulk backbone inference
 into caches) and cuts per-split SegmentDatasets with static pad_duration.
-
-The port runs the text feature; ``audio_feature`` and ``video_feature``
-keep their names, so the dotted config surface is the JAX package's, but
-any value there raises until the pydantic ``Wav2VecBert`` and ``VJEPA2``
-features are ported (ROADMAP queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -25,9 +20,11 @@ from ..core.splitting import DeterministicSplitter
 from ..data.dataset import SegmentDataset
 from ..data.helpers import prepare_features
 from ..data.study import StudyLoader
+from ..features.audio import Wav2VecBert
 from ..features.neuro import Fmri
 from ..features.subject import SubjectEncoder
 from ..features.text import LLAMA3p2
+from ..features.video import VJEPA2
 
 logger = logging.getLogger(__name__)
 
@@ -50,8 +47,8 @@ class Data(pydantic.BaseModel):
     study: StudyLoader
     neuro: Fmri
     text_feature: tp.Optional[LLAMA3p2] = None
-    audio_feature: tp.Optional[dict[str, tp.Any]] = None
-    video_feature: tp.Optional[dict[str, tp.Any]] = None
+    audio_feature: tp.Optional[Wav2VecBert] = None
+    video_feature: tp.Optional[VJEPA2] = None
     layers: list[float] | None = None
     layer_aggregation: tp.Literal["group_mean"] | None = None
     num_workers: int = 0
@@ -67,13 +64,6 @@ class Data(pydantic.BaseModel):
 
     def model_post_init(self, _ctx: tp.Any) -> None:
         super().model_post_init(_ctx)
-        for modality in ["audio", "video"]:
-            if getattr(self, f"{modality}_feature") is not None:
-                raise NotImplementedError(
-                    f"{modality}_feature: the pydantic Wav2VecBert / VJEPA2 features are "
-                    "not ported yet (ROADMAP queue 1 item 2); the port's Data runs the "
-                    "text feature, Fmri and the subject ids"
-                )
         for modality in ["text", "audio", "video"]:
             feature = getattr(self, f"{modality}_feature")
             if feature is None:

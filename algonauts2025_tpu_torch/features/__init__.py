@@ -4,6 +4,7 @@ and the frozen backbones' device sides."""
 from .audio import (
     TinyAudioBackbone,
     TorchAudioBackbone,
+    Wav2VecBert,
     encode_sound_stream,
     load_audio_backbone,
     mono_zscore,
@@ -20,6 +21,7 @@ from .text import (
     load_text_backbone,
 )
 from .video import (
+    VJEPA2,
     TinyVideoBackbone,
     TorchVideoBackbone,
     VideoBackbone,
@@ -33,6 +35,8 @@ __all__ = [
     "Fmri",
     "SubjectEncoder",
     "LLAMA3p2",
+    "Wav2VecBert",
+    "VJEPA2",
     "TinyAudioBackbone",
     "TorchAudioBackbone",
     "encode_sound_stream",

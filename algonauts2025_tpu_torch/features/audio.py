@@ -9,25 +9,31 @@ zero-padded to a multiple of ``bucket_seconds``, with the padding masked
 out of the mel statistics and the attention, as the JAX package does to
 bound its compiled shapes.
 
-The pydantic ``Wav2VecBert`` feature, ``Sound`` events, the cache uid and
-wav I/O are host layers that are not ported yet (ROADMAP queue 1 item 11):
-``encode_sound_stream`` takes ``(waveform, rate, duration)`` chunks.
+``encode_sound_stream`` takes ``(waveform, rate, duration)`` chunks; the
+pydantic ``Wav2VecBert`` feature feeds it from ``Sound`` events (or the wav
+demuxed beside a ``Video``) and caches per (filepath, offset, duration).
 """
 
 from __future__ import annotations
 
 import typing as tp
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.events import Event, Sound, Video
+from ..core.timed import Frequency
+from ..io import wav as wavio
 from ..models.backbones.wav2vec_bert import Wav2VecBertBackbone, Wav2VecBertConfig, params_from_hf
 from ..ops.mel import log_mel_features, log_mel_features_masked
 from ..ops.resample import resample_poly
 from ..runtime import default_device
+from .base import LayeredFeatureBase
 
 __all__ = [
+    "Wav2VecBert",
     "TARGET_SR",
     "OUTPUT_HZ",
     "nearest_resample",
@@ -35,6 +41,7 @@ __all__ = [
     "TorchAudioBackbone",
     "TinyAudioBackbone",
     "load_audio_backbone",
+    "load_hf_audio_backbone",
     "encode_sound_stream",
 ]
 
@@ -194,3 +201,77 @@ def encode_sound_stream(
         else:
             latents = backbone.hidden_states_2hz(wav, timepoints)
         yield latents.astype(np.float32)
+
+
+def load_hf_audio_backbone(
+    model_name: str, device: str | torch.device | None = None
+) -> TorchAudioBackbone:
+    """The bf16 backbone of a named HF ``Wav2Vec2BertModel`` checkpoint, read
+    from the local HF cache only: nothing is downloaded."""
+    from transformers import Wav2Vec2BertModel
+
+    hf_model = Wav2Vec2BertModel.from_pretrained(model_name, local_files_only=True)
+    return load_audio_backbone(hf_model.state_dict(), hf_model.config.to_dict(), device=device)
+
+
+class Wav2VecBert(LayeredFeatureBase):
+    """Frozen w2v-BERT states of each ``Sound`` event on the 2 Hz grid (the
+    JAX package's config surface and cache uids)."""
+
+    name: tp.Literal["Wav2VecBert"] = "Wav2VecBert"
+    model_name: str = "facebook/w2v-bert-2.0"
+    #: wav lengths are padded up to multiples of this (seconds) so arbitrary
+    #: ChunkEvents durations run a bounded set of shapes; 0 disables
+    bucket_seconds: float = 5.0
+
+    event_type: tp.ClassVar[str] = "Sound"
+    frequency: tp.ClassVar[float] = OUTPUT_HZ
+    modality: tp.ClassVar[str] = "audio"
+
+    def _exclude_from_cache_uid(self) -> list[str]:
+        # bucket padding is masked out of the numerics (values match the
+        # exact-length call within float tolerance), so it never busts caches
+        return ["device", "layers", "layer_aggregation", "bucket_seconds"]
+
+    @staticmethod
+    def item_uid(event: Event) -> str:
+        return f"{event.filepath}_{event.offset:.2f}_{event.duration:.2f}"  # type: ignore[attr-defined]
+
+    def _tiny_backbone(self, device: torch.device) -> TorchAudioBackbone:
+        return TinyAudioBackbone(device=device)
+
+    def _named_backbone(self, device: torch.device) -> TorchAudioBackbone:
+        return load_hf_audio_backbone(self.model_name, device=device)
+
+    def _read_mono_zscore(self, event: Event) -> tuple[np.ndarray, float]:
+        """The event's mono z-scored waveform and its rate; a ``Sound``'s wav
+        through the fused native PCM16 decode."""
+        if isinstance(event, Sound):
+            sr = Frequency(event.frequency)
+            wav = wavio.read_mono_zscore(
+                str(event.filepath),
+                start=sr.to_ind(event.offset),
+                frames=sr.to_ind(event.duration),
+            )
+            return wav, float(event.frequency)
+        wav, sfreq = self._read_wav(event)
+        return mono_zscore(wav), sfreq
+
+    def _read_wav(self, event: Event) -> tuple[np.ndarray, float]:
+        if isinstance(event, Sound):
+            return np.asarray(event.read(), dtype=np.float32), float(event.frequency)
+        if isinstance(event, Video):
+            # audio demuxed next to the video by ExtractAudioFromVideo
+            wav_path = Path(str(event.filepath)).with_suffix(".wav")
+            sr = wavio.info(str(wav_path)).samplerate
+            data = wavio.read(
+                str(wav_path),
+                start=int(event.offset * sr),
+                frames=int(event.duration * sr),
+            )
+            return data, float(sr)
+        raise TypeError(f"Unsupported event for audio feature: {type(event)}")
+
+    def _compute(self, events: tp.Sequence[Event]) -> tp.Iterator[np.ndarray]:
+        chunks = ((*self._read_mono_zscore(e), e.duration) for e in events)
+        yield from encode_sound_stream(self.backbone, chunks, bucket_seconds=self.bucket_seconds)

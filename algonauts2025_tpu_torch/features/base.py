@@ -165,13 +165,77 @@ class FeatureBase(pydantic.BaseModel):
 
 
 class LayeredFeatureBase(FeatureBase):
-    """Adds fractional-layer selection (layers / layer_aggregation)."""
+    """A frozen backbone's layer stack as a feature: fractional-layer
+    selection (layers / layer_aggregation), the backbone built on first use
+    from ``model_name`` (or injected with ``set_backbone``), and the per-event
+    (L+1, D, T) latents pooled onto the output grid."""
 
     layers: list[float] = [0.5, 0.75, 1.0]
     layer_aggregation: tp.Optional[tp.Literal["group_mean"]] = "group_mean"
+
+    #: names the backbone in the error of a named model that cannot be read
+    modality: tp.ClassVar[str] = "feature"
+    #: the per-event latents span the event's duration rather than their
+    #: own length (the JAX package's VJEPA2 does, its Wav2VecBert does not)
+    latents_span_event: tp.ClassVar[bool] = False
+
+    _backbone: tp.Any = pydantic.PrivateAttr(default=None)
 
     def _exclude_from_cache_uid(self) -> list[str]:
         return ["device", "layers", "layer_aggregation"]
 
     def _aggregate_layers(self, latents: np.ndarray) -> np.ndarray:
         return aggregate_layers(latents, self.layers, self.layer_aggregation)
+
+    # -- the backbone -----------------------------------------------------
+    def _tiny_backbone(self, device: torch.device) -> tp.Any:
+        """The seeded small backbone of ``model_name="tiny-random"``."""
+        raise NotImplementedError
+
+    def _named_backbone(self, device: torch.device) -> tp.Any:
+        """The backbone of the named model, read from local files only."""
+        raise NotImplementedError
+
+    def set_backbone(self, backbone: tp.Any) -> None:
+        self._backbone = backbone
+        self._backbone_owned = False
+
+    @property
+    def backbone(self) -> tp.Any:
+        if self._backbone is None:
+            device = self.torch_device()
+            if self.model_name == "tiny-random":  # type: ignore[attr-defined]
+                self._backbone = self._tiny_backbone(device)
+            else:
+                try:
+                    self._backbone = self._named_backbone(device)
+                except Exception as e:
+                    # never substitute random weights for a named model: the
+                    # cache is keyed by this config's uid, so a fallback
+                    # would poison it
+                    raise RuntimeError(
+                        f"Could not load {self.modality} backbone {self.model_name!r}; "  # type: ignore[attr-defined]
+                        "refusing to substitute random weights under the same "
+                        "cache identity (use model_name='tiny-random' for "
+                        "offline runs)"
+                    ) from e
+            self._backbone_owned = True
+        return self._backbone
+
+    def _get_timed_arrays(
+        self, events: list[Event], start: float, duration: float
+    ) -> tp.Iterable[TimedArray]:
+        """Each event's latents cut to [start, start + duration) (an empty
+        slice at the event's start where they miss it), layers aggregated."""
+        for event, latent in zip(events, self._get_data(events)):
+            tdata = TimedArray(
+                data=np.asarray(latent),
+                frequency=self.frequency,
+                start=event.start,
+                duration=event.duration if self.latents_span_event else None,
+            )
+            sub = tdata.overlap(start=start, duration=duration)
+            if sub is None:
+                sub = tdata.overlap(start=tdata.start, duration=0)
+            sub.data = self._aggregate_layers(sub.data)
+            yield sub

@@ -23,7 +23,6 @@ import re
 import typing as tp
 
 import numpy as np
-import pydantic
 import torch
 
 from ..core.events import Event, Word
@@ -483,10 +482,9 @@ class LLAMA3p2(LayeredFeatureBase):
 
     event_type: tp.ClassVar[str] = "Word"
     frequency: tp.ClassVar[float] = 2.0
+    modality: tp.ClassVar[str] = "text"
     MIN_CHAIN: tp.ClassVar[int] = MIN_CHAIN
     CHAIN_CHUNK: tp.ClassVar[int] = CHAIN_CHUNK
-
-    _backbone: TorchTextBackbone | None = pydantic.PrivateAttr(default=None)
 
     def _exclude_from_cache_uid(self) -> list[str]:
         return [
@@ -500,36 +498,20 @@ class LLAMA3p2(LayeredFeatureBase):
         # ambiguous when a word itself contains "_" (transcripts hold none)
         return f"{event.text}_{event.context}"  # type: ignore[attr-defined]
 
-    def set_backbone(self, backbone: TorchTextBackbone) -> None:
-        self._backbone = backbone
-        self._backbone_owned = False
-
     @property
     def backbone(self) -> TorchTextBackbone:
-        if self._backbone is None:
-            if self.pipeline_stages > 1:
-                raise NotImplementedError(
-                    "pipeline_stages > 1: stage-sharding the Llama layer stack is not "
-                    "ported yet (ROADMAP queue 1 item 6, parallel strategies)"
-                )
-            device = self.torch_device()
-            if self.model_name == "tiny-random":
-                self._backbone = TinyTextBackbone(device=device)
-            else:
-                try:
-                    self._backbone = load_hf_text_backbone(self.model_name, device=device)
-                except Exception as e:
-                    # never substitute random weights for a named model: the
-                    # cache is keyed by this config's uid, so a fallback
-                    # would poison it
-                    raise RuntimeError(
-                        f"Could not load text backbone {self.model_name!r}; "
-                        "refusing to substitute random weights under the same "
-                        "cache identity (use model_name='tiny-random' for "
-                        "offline runs)"
-                    ) from e
-            self._backbone_owned = True
-        return self._backbone
+        if self._backbone is None and self.pipeline_stages > 1:
+            raise NotImplementedError(
+                "pipeline_stages > 1: stage-sharding the Llama layer stack is not "
+                "ported yet (ROADMAP queue 1 item 6, parallel strategies)"
+            )
+        return super().backbone
+
+    def _tiny_backbone(self, device: torch.device) -> TorchTextBackbone:
+        return TinyTextBackbone(device=device)
+
+    def _named_backbone(self, device: torch.device) -> TorchTextBackbone:
+        return load_hf_text_backbone(self.model_name, device=device)
 
     def _chain_runs(self, backbone: TorchTextBackbone, events: tp.Sequence[Word]) -> list[list]:
         """[is_chain, (text, context) pairs, token ids] runs of ``events``."""

@@ -3,10 +3,10 @@
 The device side of algonauts2025_tpu/features/video.py: each 2 Hz step
 sees the previous 4 s as ``n_frames`` frames; windows are preprocessed and
 encoded in batches of ``window_batch`` and the hidden states are
-mean-pooled over tokens, giving an (L+1, D, T) stack per video.  The
-pydantic ``VJEPA2`` feature, its cache identity, events and video decoding
-are host layers that are not ported yet (ROADMAP queue 1 item 11):
-``encode_window_stream`` takes the decoded windows directly.
+mean-pooled over tokens, giving an (L+1, D, T) stack per video, with two
+batches in flight on the device.  ``encode_window_stream`` takes decoded
+windows; the pydantic ``VJEPA2`` feature feeds it from ``Video`` events
+(io/video.py) and caches per (filepath, offset, duration).
 """
 
 from __future__ import annotations
@@ -16,19 +16,28 @@ import typing as tp
 import numpy as np
 import torch
 
+from ..core.events import Event, Video
+from ..core.timed import Frequency
 from ..models.backbones.vjepa2 import VJEPA2Backbone, VJEPA2Config, params_from_hf
 from ..ops.quant import calibrate_quant_scales
 from ..ops.threefry import normal as jax_normal
 from ..ops.video_prep import preprocess_frames
 from ..runtime import default_device
+from .base import LayeredFeatureBase
 
 __all__ = [
+    "VJEPA2",
     "VideoBackbone",
     "TorchVideoBackbone",
     "TinyVideoBackbone",
     "load_video_backbone",
+    "load_hf_video_backbone",
     "encode_window_stream",
 ]
+
+OUTPUT_HZ = 2.0
+#: each 2 Hz step sees the previous 4 s of video
+WINDOW_SECONDS_BACK = 4.0
 
 _NOT_PORTED_SP = (
     "sequence parallelism (ring attention over torch.distributed) is not ported yet "
@@ -42,6 +51,11 @@ class VideoBackbone:
     def encode_windows(self, windows: np.ndarray) -> np.ndarray:
         """(B, n_frames, H, W, 3) uint8 -> (B, L+1, D) token-pooled states."""
         raise NotImplementedError
+
+    def encode_windows_async(self, windows: np.ndarray) -> torch.Tensor:
+        """``encode_windows`` as a tensor; a device backbone returns before
+        its batch is done."""
+        return torch.as_tensor(self.encode_windows(windows))
 
 
 class TorchVideoBackbone(VideoBackbone):
@@ -73,12 +87,21 @@ class TorchVideoBackbone(VideoBackbone):
                 )
 
     @torch.no_grad()
-    def encode_windows(self, windows: np.ndarray | torch.Tensor) -> np.ndarray:
-        pixels = preprocess_frames(torch.as_tensor(windows).to(self.device), self.crop_size)
+    def encode_windows_async(self, windows: np.ndarray | torch.Tensor) -> torch.Tensor:
+        """Enqueue one batch: (B, L+1, D) states left on the device, not
+        waited for (the host copy of a numpy batch is pinned, so its upload
+        overlaps the batch before it)."""
+        frames = torch.as_tensor(windows)
+        if self.device.type == "cuda" and frames.device.type == "cpu":
+            frames = frames.pin_memory()
+        pixels = preprocess_frames(frames.to(self.device, non_blocking=True), self.crop_size)
         states = self.model(pixels)
         if states.dim() == 4:  # (L+1, B, N, D) -> token mean
             states = states.mean(dim=2)
-        return states.transpose(0, 1).cpu().numpy()  # (B, L+1, D)
+        return states.transpose(0, 1)  # (B, L+1, D)
+
+    def encode_windows(self, windows: np.ndarray | torch.Tensor) -> np.ndarray:
+        return self.encode_windows_async(windows).cpu().numpy()
 
 
 def _calibrated_static_model(model: VJEPA2Backbone, n_frames: int, crop_size: int) -> VJEPA2Backbone:
@@ -157,6 +180,21 @@ def load_video_backbone(
                               device=device)
 
 
+def load_hf_video_backbone(
+    model_name: str,
+    quantize: bool = False,
+    quant_static: bool = False,
+    device: str | torch.device | None = None,
+) -> TorchVideoBackbone:
+    """The backbone of a named HF V-JEPA2 checkpoint, read from the local HF
+    cache only: nothing is downloaded."""
+    from transformers import AutoModel
+
+    hf_model = AutoModel.from_pretrained(model_name, local_files_only=True)
+    return load_video_backbone(hf_model.state_dict(), hf_model.config.to_dict(),
+                               quantize=quantize, quant_static=quant_static, device=device)
+
+
 def encode_window_stream(
     backbone: VideoBackbone, windows: tp.Iterable[np.ndarray], window_batch: int
 ) -> np.ndarray:
@@ -164,16 +202,95 @@ def encode_window_stream(
 
     Windows go to the backbone ``window_batch`` at a time; the last batch
     is padded to full width by repeating its last window, and the extra
-    outputs are dropped (one compiled batch shape in the JAX package)."""
-    outputs, batch = [], []
+    outputs are dropped (one compiled batch shape in the JAX package).  Two
+    batches stay in flight: batch k computes while k+1 uploads and k-1
+    comes back."""
+    outputs: list[np.ndarray] = []
+    pending: list[tuple[torch.Tensor, int]] = []
+
+    def flush(keep: int = 0) -> None:
+        while len(pending) > keep:
+            states, n = pending.pop(0)
+            outputs.append(states[:n].cpu().numpy())
+
+    def submit(batch: list[np.ndarray], n: int) -> None:
+        pending.append((backbone.encode_windows_async(np.stack(batch)), n))
+        flush(keep=2)
+
+    batch: list[np.ndarray] = []
     for window in windows:
         batch.append(window)
         if len(batch) == window_batch:
-            outputs.append(backbone.encode_windows(np.stack(batch)))
+            submit(batch, window_batch)
             batch = []
     if batch:
         n = len(batch)
-        batch += [batch[-1]] * (window_batch - n)
-        outputs.append(backbone.encode_windows(np.stack(batch))[:n])
+        submit(batch + [batch[-1]] * (window_batch - n), n)
+    flush()
     stacked = np.concatenate(outputs, axis=0)  # (T, L+1, D)
     return np.transpose(stacked, (1, 2, 0)).astype(np.float32)
+
+
+class VJEPA2(LayeredFeatureBase):
+    """Token-pooled V-JEPA2 states of each ``Video`` event on the 2 Hz grid
+    (the JAX package's config surface and cache uids)."""
+
+    name: tp.Literal["VJEPA2"] = "VJEPA2"
+    model_name: str = "facebook/vjepa2-vitg-fpc64-256"
+    window_batch: int = 4
+    #: w8a8 int8 backbone matmuls; changes feature values, so it is part of
+    #: the cache identity (quantized features are their own universe)
+    quantize: bool = True
+    #: with quantize: activation scales calibrated once on a fixed seeded
+    #: input, routed through the fused int8 kernels (kernel rows 6 and 7)
+    quant_static: bool = True
+    #: >1 would shard the 8192-token window sequence over that many devices
+    #: (not ported yet); device topology, not semantics: excluded from the
+    #: cache uid like ``device`` and ``window_batch``
+    sequence_parallel: int = 0
+
+    event_type: tp.ClassVar[str] = "Video"
+    frequency: tp.ClassVar[float] = OUTPUT_HZ
+    modality: tp.ClassVar[str] = "video"
+    latents_span_event: tp.ClassVar[bool] = True
+    #: the JAX package's cache-semantics version ("3": quantize and
+    #: quant_static default to True), kept so the caches are shared
+    _cache_impl_version: tp.ClassVar[str] = "3"
+
+    def _exclude_from_cache_uid(self) -> list[str]:
+        return [
+            "device", "layers", "layer_aggregation", "window_batch",
+            "sequence_parallel",
+        ]
+
+    @staticmethod
+    def item_uid(event: Event) -> str:
+        return f"{event.filepath}_{event.offset:.2f}_{event.duration:.2f}"  # type: ignore[attr-defined]
+
+    @property
+    def backbone(self) -> VideoBackbone:
+        if self._backbone is None and self.sequence_parallel > 1:
+            raise NotImplementedError(_NOT_PORTED_SP)
+        return super().backbone
+
+    def _tiny_backbone(self, device: torch.device) -> VideoBackbone:
+        return TinyVideoBackbone(quantize=self.quantize, quant_static=self.quant_static,
+                                 device=device)
+
+    def _named_backbone(self, device: torch.device) -> VideoBackbone:
+        return load_hf_video_backbone(self.model_name, quantize=self.quantize,
+                                      quant_static=self.quant_static, device=device)
+
+    def _compute(self, events: tp.Sequence[Video]) -> tp.Iterator[np.ndarray]:
+        backbone = self.backbone
+        for event in events:
+            clip = event.read()
+            try:
+                expect_frames = max(1, Frequency(OUTPUT_HZ).to_ind(event.duration))
+                times = np.linspace(0, clip.duration, expect_frames + 1)[1:]
+                windows = clip.sliding_windows(times, backbone.n_frames, WINDOW_SECONDS_BACK)
+                latents = encode_window_stream(backbone, windows, self.window_batch)
+            finally:
+                # a failure mid-event must not leak the decoder
+                clip.close()
+            yield latents

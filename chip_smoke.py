@@ -77,7 +77,30 @@ Phases (any failure exits non-zero):
    ``aggregate_layers`` down to the trunk's audio input.  One chunk is
    encoded again at its exact length, and the two must agree.
 
-Before each main path (phases 4 to 8) every kernel's launch counter is
+9. The port's ``Experiment(**cfg).run()`` on the card, ``cfg`` being
+   ``grids/defaults.py``'s with ``accelerator="cuda"``:
+   - the text branch (``LLAMA3p2`` at full Llama-3.2-3B width, seeded
+     weights through ``set_backbone``, layers [0.5, 0.75, 1.0] group_mean)
+     on the flagship trunk with InfoNCE on text, batch 16, one epoch, over
+     a synthetic study written by ``make_synthetic_study``: the four
+     release subjects, 1000 parcels, 4 train episodes of 300 s.  It prints
+     the seconds by stage, the seconds of a train step inside the
+     Experiment beside phase 4's, the peak and the launches, and requires
+     metrics.csv, pearson.npy, last.ckpt and submission.zip with finite
+     numbers.  A rerun from the same folders must compute no feature and
+     launch the text kernel no time;
+   - a small Experiment (tiny trunk, tiny text backbone, the same initial
+     weights) on the card and on the CPU: the per-epoch train losses agree;
+   - the pydantic ``Wav2VecBert`` at full w2v-BERT 2.0 width over ``Sound``
+     events of a 48 kHz stereo wav written by ``io/wav`` (phase 8's chunk
+     durations): each chunk's features agree with ``encode_sound_stream``
+     on the same samples within phase 8's limits, and a second feature
+     over the same cache computes nothing;
+   - the whole trimodal default (Llama-3.2-3B, w2v-BERT 2.0, ViT-G static
+     int8, the flagship trunk with InfoNCE on video) over a synthetic study
+     with video: the video kernels launch as reckoned, rows 1 and 2 launch.
+
+Before each main path (phases 4 to 9) every kernel's launch counter is
 zeroed, and it is read just after.  The line before the last is the JSON
 ``kernels`` record; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -92,6 +115,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -100,16 +124,25 @@ from unittest import mock
 import numpy as np
 import torch
 
+from algonauts2025_tpu_torch.config import ConfDict
+from algonauts2025_tpu_torch.core.events import Sound
 from algonauts2025_tpu_torch.data import SegmentData, prefetch_to_device, to_device
+from algonauts2025_tpu_torch.data.synthetic import make_synthetic_study
+from algonauts2025_tpu_torch.experiment import Experiment
+from algonauts2025_tpu_torch.experiment import data as experiment_data
+from algonauts2025_tpu_torch.experiment.data import Data as ExperimentData
 from algonauts2025_tpu_torch.features.audio import (
-    TARGET_SR, TorchAudioBackbone, encode_sound_stream, mono_zscore,
+    TARGET_SR, TorchAudioBackbone, Wav2VecBert, encode_sound_stream, mono_zscore,
 )
 from algonauts2025_tpu_torch.features.text import (
-    CHAIN_CHUNK, HashTokenizer, TorchTextBackbone, _bucket_width, encode_word_stream,
+    CHAIN_CHUNK, LLAMA3p2, HashTokenizer, TinyTextBackbone, TorchTextBackbone, _bucket_width,
+    encode_word_stream,
 )
 from algonauts2025_tpu_torch.features.video import (
     TorchVideoBackbone, _calibrated_static_model, encode_window_stream,
 )
+from algonauts2025_tpu_torch.grids.defaults import default_config
+from algonauts2025_tpu_torch.io import wav as wavio
 from algonauts2025_tpu_torch.models import FmriEncoderConfig
 from algonauts2025_tpu_torch.models.backbones import llama, vjepa2
 from algonauts2025_tpu_torch.models.backbones.llama import LLAMA_3P2_3B, LlamaBackbone, LlamaConfig
@@ -1015,27 +1048,37 @@ def video_path(n_windows: int = 10, window_batch: int = 4) -> dict:
     windows = [rng.integers(0, 256, (cfg.frames_per_clip, 288, 512, 3), dtype=np.uint8)
                for _ in range(n_windows)]
     batch_s = []
-    encode = backbone.encode_windows
+    encode, encode_async = backbone.encode_windows, backbone.encode_windows_async
 
     def timed(batch):
         t = time.perf_counter()
-        out = encode(batch)  # ends in a device-to-host copy: synchronises
+        out = encode_async(batch).cpu()  # one batch at a time, its states back on the host
         batch_s.append(time.perf_counter() - t)
         return out
 
-    backbone.encode_windows = timed
+    backbone.encode_windows_async = timed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     feats = encode_window_stream(backbone, windows, window_batch)
     torch.cuda.synchronize()
     launches = launch_counts()
+    backbone.encode_windows_async = encode_async
+    # the stream as the feature runs it: two batches in flight
+    t0 = time.perf_counter()
+    pipelined = encode_window_stream(backbone, windows, window_batch)
+    stream_s = time.perf_counter() - t0
+    reset_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_batches = -(-n_windows // window_batch)
     expected = {**{key: 0 for key in launches}, "flash_attention": cfg.num_layers * n_batches,
                 "w8a8": 4 * cfg.num_layers * n_batches, "int8_mlp": cfg.num_layers * n_batches}
     trunk_input = aggregate_layers(feats, [0.5, 0.75, 1.0])
-    log(f"video features {feats.shape}, trunk input {trunk_input.shape}; batch seconds {batch_s}")
+    log(f"video features {feats.shape}, trunk input {trunk_input.shape}; batch seconds {batch_s}; "
+        f"the stream with two batches in flight: {stream_s:.3f} s for {n_batches} batches, "
+        f"max |diff| to batch by batch {np.abs(pipelined - feats).max():.3e}")
+    if not np.abs(pipelined - feats).max() <= 1e-5 * np.abs(feats).max():
+        raise SystemExit("the pipelined window stream gave other features than batch by batch")
     log(f"video launches {launches} (expected {expected}); peak device memory {peak_gb:.2f} GB")
     want = (cfg.num_layers + 1, cfg.hidden_size, n_windows)
     if feats.shape != want or not np.isfinite(feats).all():
@@ -1345,7 +1388,8 @@ def audio_path(peaks: dict[str, float]) -> dict:
         f"by layer {' '.join(f'{r:.1e}' for r in rel)}")
     if not (rel.max() <= rel_tol and cos.min() >= cos_tol):
         raise SystemExit("the bucketed audio features disagree with the exact-length call")
-    return {"ms_chunk": ms_chunk, "per_hour": per_hour, "peak_gb": peak_gb, "n_params": n_params}
+    return {"ms_chunk": ms_chunk, "per_hour": per_hour, "peak_gb": peak_gb, "n_params": n_params,
+            "backbone": backbone}
 
 
 FLAGSHIP_DIMS = {"text": (2, 3072), "audio": (2, 1024), "video": (2, 1408)}
@@ -1498,6 +1542,344 @@ def main_path(n_steps: int = 5, n_eval: int = 2, n_predict: int = 1) -> dict:
             "peak_gb": peak_gb, "n_params": n_params}
 
 
+# phase 9: the port's Experiment.  The study of the text-only run: the four
+# release subjects, 1000 parcels, 10 train episodes of 600 s (about a Friends
+# half-episode; the generator adds one test episode).  The hash split keeps 9
+# of them for training: 180 windows, 11 full batches of 16, of which the
+# StageClock times the 10 after the first, enough for a median
+# (MIN_TEXT_STEPS).  The trimodal run's: one subject, two train episodes and
+# one test episode of 100 s with video (the shortest at which the last
+# contexts pass 128 tokens, so Llama forwards of width 256 launch the text
+# kernel)
+EXPERIMENT_STUDY = dict(subjects=("sub-01", "sub-02", "sub-03", "sub-05"),
+                        train_episodes=tuple(f"e{i:02d}{half}" for i in range(1, 6)
+                                             for half in "ab"),
+                        duration=600.0, n_parcels=1000, with_video=False)
+MIN_TEXT_STEPS = 8
+TRIMODAL_STUDY = dict(subjects=("sub-01",), train_episodes=("e01a", "e01b"), duration=100.0,
+                      n_parcels=1000, with_video=True)
+FEATURES = ("text_feature", "audio_feature", "video_feature")
+# limit of the small Experiment, card vs CPU: per-epoch train loss, relative
+# (the small trunk's limit of phase 3)
+EXPERIMENT_CPU_RTOL = 1e-4
+# a checkpoint of the flagship trunk holds its params and Adam moments
+# (sizes printed below, PERF.md); an improving epoch writes two (best and
+# last) and the end of the fit a third (last, with the SWA weights).  A
+# second epoch of the text run would take its writes past what a chip
+# machine's disk lets one command write (45 GiB), so it trains one epoch,
+# its rerun and the trimodal run write no checkpoint
+TEXT_RUN_EPOCHS = 1
+
+
+class StageClock:
+    """Seconds by stage of one ``Experiment.run()`` (events, feature
+    prepare, fit, the final evaluate, submission; and the checkpoint writes
+    inside fit and reads at a resume), and the (batch size, seconds, data
+    wait, enqueue) of each train step inside an epoch after its first: the
+    seconds between the ends of consecutive steps (each step waited for),
+    what a step costs inside the Experiment, data feed included; the wait
+    is the part before the step is called, the card idle for its batch;
+    the enqueue is the host's time in ``train_step`` (its launches), the
+    rest of the step the card finishing what was enqueued."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self.step_s: list[tuple[int, float, float, float]] = []
+        self._last_end: float | None = None
+        self._in_fit = False
+
+    def _timed(self, stage: str, fn):
+        def wrapper(*args, **kwargs):
+            inner = stage == "evaluate" and self._in_fit
+            self._last_end = None  # an epoch ends with its evaluate
+            if stage == "fit":
+                self._in_fit = True
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                if stage == "fit":
+                    self._in_fit = False
+                if not inner:
+                    self.seconds[stage] = self.seconds.get(stage, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    def _step(self, fn):
+        def wrapper(trainer, data, *args, **kwargs):
+            called = time.perf_counter()
+            out = fn(trainer, data, *args, **kwargs)
+            returned = time.perf_counter()
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if self._last_end is not None:
+                self.step_s.append((len(data["fmri"]), now - self._last_end,
+                                    called - self._last_end, returned - called))
+            self._last_end = now
+            return out
+        return wrapper
+
+    def run(self, experiment: Experiment) -> tuple[dict, float]:
+        patches = [
+            mock.patch.object(ExperimentData, "get_events",
+                              self._timed("events", ExperimentData.get_events)),
+            mock.patch.object(experiment_data, "prepare_features",
+                              self._timed("features", experiment_data.prepare_features)),
+            mock.patch.object(BrainTrainer, "fit", self._timed("fit", BrainTrainer.fit)),
+            mock.patch.object(BrainTrainer, "evaluate",
+                              self._timed("evaluate", BrainTrainer.evaluate)),
+            mock.patch.object(Experiment, "write_submission",
+                              self._timed("submission", Experiment.write_submission)),
+            mock.patch.object(BrainTrainer, "train_step", self._step(BrainTrainer.train_step)),
+            mock.patch.object(BrainTrainer, "save_checkpoint",
+                              self._timed("checkpoint writes", BrainTrainer.save_checkpoint)),
+            mock.patch.object(BrainTrainer, "load_checkpoint",
+                              self._timed("checkpoint read", BrainTrainer.load_checkpoint)),
+        ]
+        for patch in patches:
+            patch.start()
+        t0 = time.perf_counter()
+        try:
+            out = experiment.run()
+            torch.cuda.synchronize()
+        finally:
+            for patch in patches:
+                patch.stop()
+        return out, time.perf_counter() - t0
+
+
+def experiment_config(root: Path, study_path: Path, name: str, modalities=("text",),
+                      n_epochs: int = 2) -> dict:
+    """``grids/defaults.py``'s config on the card, pointed at a synthetic
+    study, with caches and the run under ``root``; the features of the
+    other modalities off and InfoNCE on the text when there is no video."""
+    cfg = ConfDict(default_config)
+    cache = str(root / "cache")
+    cfg.update({"infra.folder": str(root / name), "infra.mode": "force", "accelerator": "cuda",
+                "data.study.path": str(study_path), "data.study.infra.folder": cache,
+                "data.neuro.infra.folder": cache, "wandb_config": None, "n_epochs": n_epochs})
+    for feature in FEATURES:
+        if feature.split("_")[0] in modalities:
+            cfg[f"data.{feature}.infra.folder"] = cache
+        else:
+            cfg[f"data.{feature}"] = None
+    if "video" not in modalities:
+        cfg["brain_model_config.contrastive_modalities"] = ["text"]
+    return cfg.to_dict()
+
+
+def check_artifacts(folder: Path, out: dict, what: str, checkpoint: bool = True) -> None:
+    """metrics.csv, pearson.npy, last.ckpt (with ``checkpoint``) and
+    submission.zip exist, and every number of the run's output, pearson.npy
+    and the submission is finite."""
+    artifacts = ("metrics.csv", "pearson.npy", "submission.zip") + ("last.ckpt",) * checkpoint
+    missing = [a for a in artifacts if not (folder / a).exists()]
+    sub = np.load(folder / "submission.npy", allow_pickle=True).item() if not missing else {}
+    finite = (all(np.isfinite(v) for v in out.values())
+              and not missing and np.isfinite(np.load(folder / "pearson.npy")).all()
+              and sub and all(np.isfinite(a).all() for c in sub.values() for a in c.values()))
+    log(f"{what}: artifacts {sorted(p.name for p in folder.iterdir())}; submission "
+        f"{ {s: len(c) for s, c in sub.items()} } chunks a subject")
+    if missing or not finite:
+        raise SystemExit(f"{what}: missing artifacts {missing} or non-finite values in {out}")
+
+
+def seeded_llama() -> TorchTextBackbone:
+    """Llama-3.2-3B at full width, seeded weights at the HF init scale."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    model = LlamaBackbone(LLAMA_3P2_3B, device="cuda").init_random(gen)
+    return TorchTextBackbone(model, HashTokenizer(LLAMA_3P2_3B.vocab_size), pad_id=0)
+
+
+def experiment_path(root: Path, llama: TorchTextBackbone, trunk_step_s: float) -> dict:
+    """``Experiment(**cfg).run()`` on the card with the default text feature
+    at full Llama-3.2-3B width and the flagship trunk; then the rerun from
+    the same folders, which must compute no feature."""
+    study = make_synthetic_study(root / "data", **EXPERIMENT_STUDY)
+    cfg = experiment_config(root, study, "text_run", n_epochs=TEXT_RUN_EPOCHS)
+    exp = Experiment(**cfg)
+    exp.data.text_feature.set_backbone(llama)
+    computed = []
+    compute = LLAMA3p2._compute
+
+    def counted(self, events):
+        computed.extend(events)
+        yield from compute(self, events)
+
+    clock = StageClock()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with mock.patch.object(LLAMA3p2, "_compute", counted):
+        out, total_s = clock.run(exp)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    folder = Path(cfg["infra"]["folder"])
+    full = [(sec, wait) for n, sec, wait, _ in clock.step_s if n == exp.data.batch_size]
+    n_steps = len(full)
+    step_s = statistics.median(sec for sec, _ in full) if full else float("nan")
+    idle = sum(wait for _, wait in full) / sum(sec for sec, _ in full) if full else float("nan")
+    log(f"Experiment (text, Llama-3.2-3B, flagship trunk, {len(exp._trainer.history)} epochs): "
+        f"{total_s:.2f} s; by stage { {k: round(v, 3) for k, v in clock.seconds.items()} }; "
+        f"{len(computed)} words computed; (batch, seconds, data wait, enqueue) of the steps "
+        f"inside the Experiment {[tuple(round(x, 4) for x in step) for step in clock.step_s]}, median of "
+        f"batch {exp.data.batch_size} {step_s:.4f} s against phase 4's {trunk_step_s:.4f} s, "
+        f"the card idle on data {idle:.3f} of them; peak {peak_gb:.2f} GB; "
+        f"launches {launches}; metrics {json.dumps(out)}")
+    check_artifacts(folder, out, "Experiment (text)")
+    log(f"checkpoints: {', '.join(f'{p.name} {p.stat().st_size / 1e9:.2f} GB' for p in sorted(folder.glob('*.ckpt')))}")
+    if not (computed and launches["attention"] and launches["flash_masked"]):
+        raise SystemExit(f"the Experiment computed no feature or launched no attention kernel: {launches}")
+    if n_steps < MIN_TEXT_STEPS:
+        raise SystemExit(f"the Experiment timed {n_steps} full train steps, fewer than {MIN_TEXT_STEPS}")
+
+    # the rerun from the same folders: the named model is never loaded (no
+    # backbone is set), so any feature computed would raise.  It resumes from
+    # last.ckpt after its last epoch; saving would only write last.ckpt again
+    reset_counts()
+    computed.clear()
+    again, rerun_clock = Experiment(**dict(cfg, save_checkpoints=False)), StageClock()
+    with mock.patch.object(LLAMA3p2, "_compute", counted):
+        out2, rerun_s = rerun_clock.run(again)
+    rerun = launch_counts()
+    log(f"Experiment rerun from the same folders: {rerun_s:.2f} s; by stage "
+        f"{ {k: round(v, 3) for k, v in rerun_clock.seconds.items()} }; {len(computed)} words "
+        f"computed, launches {rerun}, metrics {json.dumps(out2)}")
+    check_artifacts(folder, out2, "Experiment rerun")
+    if computed or rerun["flash_masked"] or not rerun["attention"]:
+        raise SystemExit("the rerun computed features or launched the text kernel")
+    return {"seconds": clock.seconds, "total_s": total_s, "step_s": step_s, "peak_gb": peak_gb,
+            "launches": launches, "n_steps": n_steps, "idle": idle,
+            "step_range": (min(sec for sec, _ in full), max(sec for sec, _ in full))}
+
+
+def check_small_experiment_against_cpu(root: Path) -> None:
+    """A small Experiment (tiny trunk, tiny text backbone) on the card and on
+    the CPU, from the same trunk and backbone weights: the per-epoch train
+    losses agree."""
+    study = make_synthetic_study(root / "data", subjects=("sub-01", "sub-02"), n_parcels=32,
+                                 duration=40.0, with_video=False)
+    cpu_text = TinyTextBackbone(device="cpu")
+    card_text = TinyTextBackbone(state_dict=cpu_text.model.state_dict(), device="cuda")
+    init = {}
+    orig = BrainTrainer.init_state
+
+    def init_state(self, *args, **kwargs):
+        orig(self, *args, **kwargs)
+        if init:
+            self.model.load_state_dict({k: v.to(self.device) for k, v in init.items()})
+        else:
+            init.update({k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()})
+
+    histories = {}
+    for device, backbone in (("cuda", card_text), ("cpu", cpu_text)):
+        cfg = ConfDict(experiment_config(root / device, study, "run"))
+        cfg.update({"accelerator": device, "data.num_workers": 0, "data.batch_size": 4,
+                    "data.text_feature.model_name": "tiny-random",
+                    "data.text_feature.device": device, "brain_model_config.hidden": 96,
+                    "brain_model_config.depth": 1, "brain_model_config.heads": 4,
+                    "brain_model_config.modality_dropout": 0.0,
+                    "metrics": [{"log_name": "pearson", "name": "MultidimPearsonCorrCoef"}]})
+        exp = Experiment(**cfg.to_dict())
+        exp.data.text_feature.set_backbone(backbone)
+        with mock.patch.object(BrainTrainer, "init_state", init_state):
+            exp.run()
+        histories[device] = [r["train/loss"] for r in exp._trainer.history]
+    got, want = np.array(histories["cuda"]), np.array(histories["cpu"])
+    rel = np.abs(got - want).max() / np.abs(want).max()
+    log(f"small Experiment (tiny trunk and text backbone, {len(want)} epochs), card vs CPU: "
+        f"train losses {got.tolist()} / {want.tolist()}, max rel diff {rel:.3e} "
+        f"(tol {EXPERIMENT_CPU_RTOL:.0e})")
+    if got.shape != want.shape or not len(want) or not rel <= EXPERIMENT_CPU_RTOL:
+        raise SystemExit("the small Experiment on the card disagrees with the CPU")
+
+
+def audio_feature_path(root: Path, backbone: TorchAudioBackbone) -> None:
+    """The pydantic ``Wav2VecBert`` at full w2v-BERT 2.0 width over ``Sound``
+    events of a wav written by ``io/wav``: phase 8's chunk durations, one
+    stereo 48 kHz file, each event at its offset.  Each chunk's features
+    must agree with ``encode_sound_stream`` on the same samples within
+    phase 8's limits; a second feature over the same cache computes none."""
+    rng = np.random.default_rng(SEED + 22)
+    n = int(round(sum(AUDIO_CHUNKS_S) * AUDIO_SR))
+    stereo = np.stack([speech_like(n, AUDIO_SR, rng) for _ in range(2)], axis=1)
+    path = root / "speech.wav"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    wavio.write(path, 0.3 * stereo / np.abs(stereo).max(), AUDIO_SR)
+    offsets = np.cumsum([0.0, *AUDIO_CHUNKS_S[:-1]])
+    events = [Sound(filepath=str(path), start=float(o), offset=float(o), duration=d,
+                    timeline="audio") for o, d in zip(offsets, AUDIO_CHUNKS_S)]
+    feature = Wav2VecBert(infra={"folder": str(root / "cache")})
+    feature.set_backbone(backbone)
+    t0 = time.perf_counter()
+    got = feature._get_data(events)
+    seconds = time.perf_counter() - t0
+    rel_tol, cos_tol = AUDIO_BUCKET_LIMITS
+    worst_rel, worst_cos = 0.0, 1.0
+    for event, g in zip(events, got):
+        sr = int(event.frequency)
+        wav = mono_zscore(wavio.read(str(path), start=int(round(event.offset * sr)),
+                                     frames=int(round(event.duration * sr))))
+        (ref,) = encode_sound_stream(backbone, [(wav, sr, event.duration)])
+        g64, r64 = np.asarray(g, np.float64), ref.astype(np.float64)
+        if g64.shape != r64.shape:
+            raise SystemExit(f"Wav2VecBert gave {g64.shape}, encode_sound_stream {r64.shape}")
+        rel = np.linalg.norm(g64 - r64, axis=(1, 2)) / np.linalg.norm(r64, axis=(1, 2))
+        cos = (g64 * r64).sum(1) / (np.linalg.norm(g64, axis=1) * np.linalg.norm(r64, axis=1))
+        worst_rel, worst_cos = max(worst_rel, rel.max()), min(worst_cos, cos.min())
+    reread = Wav2VecBert(infra={"folder": str(root / "cache")})  # no backbone: cannot compute
+    cached = reread._get_data(events)
+    same = all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(cached, got))
+    log(f"Wav2VecBert (w2v-BERT 2.0, {len(events)} Sound events of {AUDIO_CHUNKS_S} s in one "
+        f"48 kHz stereo wav): {seconds:.2f} s, shapes {[np.shape(g) for g in got]}; against "
+        f"encode_sound_stream: max rel L2 {worst_rel:.3e} (tol {rel_tol:.0e}), min cosine "
+        f"{worst_cos:.6f} (tol {cos_tol}); cached reread equal: {same}")
+    if not (worst_rel <= rel_tol and worst_cos >= cos_tol and same):
+        raise SystemExit("the Wav2VecBert feature disagrees with encode_sound_stream or its cache")
+
+
+def trimodal_path(root: Path, llama: TorchTextBackbone, audio: TorchAudioBackbone) -> dict:
+    """``grids/defaults.py`` whole on the card: the text (Llama-3.2-3B),
+    audio (w2v-BERT 2.0) and video (ViT-G, static int8) features at full
+    width, seeded, and the flagship trunk with InfoNCE on video, over a
+    synthetic study with video."""
+    study = make_synthetic_study(root / "data", **TRIMODAL_STUDY)
+    cfg = experiment_config(root, study, "trimodal_run", modalities=("text", "audio", "video"),
+                            n_epochs=1)
+    cfg["save_checkpoints"] = False
+    vit_cfg = dataclasses.replace(VJEPA2_VITG, quantize=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    model = _calibrated_static_model(quantized_backbone(vit_cfg, gen), vit_cfg.frames_per_clip,
+                                     vit_cfg.crop_size)
+    video = TorchVideoBackbone(model, n_frames=vit_cfg.frames_per_clip, crop_size=vit_cfg.crop_size)
+    exp = Experiment(**cfg)
+    exp.data.text_feature.set_backbone(llama)
+    exp.data.audio_feature.set_backbone(audio)
+    exp.data.video_feature.set_backbone(video)
+    clock = StageClock()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, total_s = clock.run(exp)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # every video (two train, one test) is windowed at 2 Hz, in batches of 4;
+    # the text kernel runs in the forwards of width 256
+    windows = int(round(2 * TRIMODAL_STUDY["duration"]))
+    batches = 3 * -(-windows // exp.data.video_feature.window_batch)
+    expected = {"flash_attention": vit_cfg.num_layers * batches,
+                "w8a8": 4 * vit_cfg.num_layers * batches, "int8_mlp": vit_cfg.num_layers * batches}
+    log(f"Experiment (trimodal default: Llama-3.2-3B, w2v-BERT 2.0, ViT-G int8, flagship trunk): "
+        f"{total_s:.2f} s; by stage { {k: round(v, 3) for k, v in clock.seconds.items()} }; "
+        f"peak {peak_gb:.2f} GB; launches {launches} (video rows expected {expected}); "
+        f"metrics {json.dumps(out)}")
+    check_artifacts(Path(cfg["infra"]["folder"]), out, "Experiment (trimodal)", checkpoint=False)
+    if {k: launches[k] for k in expected} != expected or not (
+            launches["attention"] and launches["flash_masked"]):  # rows 1 and 2
+        raise SystemExit("the trimodal Experiment did not launch the kernels as expected")
+    return {"seconds": clock.seconds, "total_s": total_s, "peak_gb": peak_gb, "launches": launches}
+
+
 def main() -> None:
     name_and_limit = card()
     kind = torch.cuda.get_device_name(0)
@@ -1527,6 +1909,22 @@ def main() -> None:
     log(f"audio path: {audio['ms_chunk']:.2f} ms per 30-60 s chunk (first excluded), "
         f"{audio['per_hour']:.3f} s per hour of audio, peak {audio['peak_gb']:.2f} GB, "
         f"{audio['n_params']} params on {name_and_limit}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        llama = seeded_llama()
+        experiment = experiment_path(root / "text", llama, run["step_s"])
+        log(f"Experiment: {experiment['total_s']:.2f} s, median step inside "
+            f"{experiment['step_s']:.4f} s over {experiment['n_steps']} steps (min, max "
+            f"{experiment['step_range'][0]:.4f}, {experiment['step_range'][1]:.4f} s; phase 4: "
+            f"{run['step_s']:.4f} s; idle on data {experiment['idle']:.3f}), peak "
+            f"{experiment['peak_gb']:.2f} GB, attention launches "
+            f"{experiment['launches']['attention']}, flash_masked launches "
+            f"{experiment['launches']['flash_masked']} on {name_and_limit}")
+        check_small_experiment_against_cpu(root / "small")
+        audio_feature_path(root / "audio", audio["backbone"])
+        trimodal = trimodal_path(root / "trimodal", llama, audio["backbone"])
+        log(f"trimodal Experiment: {trimodal['total_s']:.2f} s, peak {trimodal['peak_gb']:.2f} GB "
+            f"on {name_and_limit}")
     # each kernel's launches from the path that runs it
     launches = {**video["launches"], "attention": run["attention"],
                 "flash_masked": text["launches"]["flash_masked"],

@@ -7,6 +7,9 @@ both backbones carry the JAX tiny backbone's weights.  End to end, the
 port's ``Experiment.run()`` starts from the JAX run's initial trunk weights
 and must give the same per-epoch train loss (rtol 1e-4, the trunk limit of
 tests/test_torch_training.py), per-voxel pearson and submission arrays.
+The trimodal twin of tests/test_experiment_e2e.py's trimodal run adds the
+Wav2VecBert and VJEPA2 features, each backbone with the JAX tiny
+backbone's weights.
 """
 
 import jax
@@ -20,14 +23,21 @@ from algonauts2025_tpu.config.uid import config_uid as jax_config_uid
 from algonauts2025_tpu.data.synthetic import make_synthetic_study
 from algonauts2025_tpu.experiment import Experiment as JaxExperiment
 from algonauts2025_tpu.experiment.data import Data as JaxData
+from algonauts2025_tpu.features import audio as jaudio
 from algonauts2025_tpu.features import text as jt
+from algonauts2025_tpu.features import video as jvideo
 from algonauts2025_tpu.training import trainer as jax_trainer
 from algonauts2025_tpu_torch.config.uid import config_uid
 from algonauts2025_tpu_torch.data import synthetic as port_synthetic
 from algonauts2025_tpu_torch.experiment import Experiment
 from algonauts2025_tpu_torch.experiment.data import Data
+from algonauts2025_tpu_torch.features import audio as ta
 from algonauts2025_tpu_torch.features import text as tt
-from algonauts2025_tpu_torch.models import flax_params_to_torch, llama_params_to_torch
+from algonauts2025_tpu_torch.features import video as tv
+from algonauts2025_tpu_torch.models import (
+    flax_params_to_torch, llama_params_to_torch, vjepa2_params_to_torch,
+    wav2vec_bert_params_to_torch,
+)
 from algonauts2025_tpu_torch.training import trainer as port_trainer
 
 #: every pearson.npy and submission value: atol 1e-4 (the largest differences
@@ -227,7 +237,7 @@ def _jax_run(cfg, monkeypatch):
     return exp, out, captured["params"]
 
 
-def _port_run(cfg, backbone, init_params, monkeypatch):
+def _port_run(cfg, backbone, init_params, monkeypatch, audio=None, video=None):
     orig = port_trainer.BrainTrainer.init_state
 
     def init_state(self, *args, **kwargs):
@@ -237,9 +247,26 @@ def _port_run(cfg, backbone, init_params, monkeypatch):
     monkeypatch.setattr(port_trainer.BrainTrainer, "init_state", init_state)
     exp = Experiment(**cfg)
     exp.data.text_feature.set_backbone(backbone)
+    if audio is not None:
+        exp.data.audio_feature.set_backbone(audio)
+    if video is not None:
+        exp.data.video_feature.set_backbone(video)
     out = exp.run()
     monkeypatch.undo()
     return exp, out
+
+
+def _assert_same_artifacts(port_dir, ref_dir, n_parcels, subjects):
+    np.testing.assert_allclose(np.load(port_dir / "pearson.npy"),
+                               np.load(ref_dir / "pearson.npy"), atol=ARTIFACT_ATOL)
+    sub = np.load(port_dir / "submission.npy", allow_pickle=True).item()
+    ref_sub = np.load(ref_dir / "submission.npy", allow_pickle=True).item()
+    assert set(sub) == set(ref_sub) == set(subjects)
+    for subject, chunks in ref_sub.items():
+        assert set(sub[subject]) == set(chunks)
+        for chunk, arr in chunks.items():
+            assert sub[subject][chunk].shape == arr.shape and arr.shape[1] == n_parcels
+            np.testing.assert_allclose(sub[subject][chunk], arr, atol=ARTIFACT_ATOL)
 
 
 def test_experiment_matches_jax_end_to_end(study, tiny_text, tmp_path, monkeypatch):
@@ -258,16 +285,7 @@ def test_experiment_matches_jax_end_to_end(study, tiny_text, tmp_path, monkeypat
     for artifact in ["config.yaml", "metrics.csv", "metrics.jsonl", "pearson.npy",
                      "submission.zip", "last.ckpt"]:
         assert (port_dir / artifact).exists(), artifact
-    np.testing.assert_allclose(np.load(port_dir / "pearson.npy"),
-                               np.load(ref_dir / "pearson.npy"), atol=ARTIFACT_ATOL)
-    sub = np.load(port_dir / "submission.npy", allow_pickle=True).item()
-    ref_sub = np.load(ref_dir / "submission.npy", allow_pickle=True).item()
-    assert set(sub) == set(ref_sub) == {"sub-01", "sub-02", "sub-03", "sub-05"}
-    for subject, chunks in ref_sub.items():
-        assert set(sub[subject]) == set(chunks)
-        for chunk, arr in chunks.items():
-            assert sub[subject][chunk].shape == arr.shape and arr.shape[1] == 32
-            np.testing.assert_allclose(sub[subject][chunk], arr, atol=ARTIFACT_ATOL)
+    _assert_same_artifacts(port_dir, ref_dir, 32, {"sub-01", "sub-02", "sub-03", "sub-05"})
     # one JSONL record per epoch, logged by the trainer
     assert len((port_dir / "metrics.jsonl").read_text().splitlines()) == 2
     # the caches of both packages carry the same uids
@@ -313,11 +331,17 @@ def test_unported_options_raise(study, tmp_path, override, match):
 
 
 def test_unported_features_raise(study, tmp_path):
+    """The audio and video features are accepted; their device-topology
+    options that are not ported yet raise when the backbone is built."""
     root, path = study
     data = _config(tmp_path, path, "features")["data"]
-    for key in ("audio_feature", "video_feature"):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            Data(**dict(data, **{key: {"name": "VJEPA2"}}))
+    built = Data(**dict(data, audio_feature={"name": "Wav2VecBert"},
+                        video_feature={"name": "VJEPA2"}))
+    assert isinstance(built.audio_feature, ta.Wav2VecBert)
+    assert isinstance(built.video_feature, tv.VJEPA2)
+    assert built.video_feature.layers == data["layers"]
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tv.VJEPA2(model_name="tiny-random", device="cpu", sequence_parallel=2).backbone
     with pytest.raises(NotImplementedError, match="item 6"):
         tt.LLAMA3p2(model_name="tiny-random", device="cpu", pipeline_stages=2).backbone
 
@@ -405,3 +429,164 @@ def test_llama3p2_named_model_reads_local_hf_files(tmp_path):
               for i, (w, c) in enumerate(words)]
     out = [np.asarray(x) for x in feat._compute(events)]
     assert len(out) == 3 and all(o.shape == (3, 32) and np.isfinite(o).all() for o in out)
+
+
+# -- the trimodal twin of tests/test_experiment_e2e.py -----------------------
+@pytest.fixture(scope="module")
+def trimodal_study(tmp_path_factory):
+    root = tmp_path_factory.mktemp("trimodal")
+    return root, make_synthetic_study(root / "data", with_video=True, n_parcels=16,
+                                      duration=24.0, subjects=("sub-01",),
+                                      train_episodes=("e01a", "e01b"), test_episodes=("e01a",))
+
+
+@pytest.fixture(scope="module")
+def tiny_audio_video():
+    """The port's tiny audio and video backbones with the weights of the JAX
+    tiny backbones that ``model_name="tiny-random"`` builds (the static
+    int8 video backbone calibrates itself, as the JAX one does)."""
+    audio = ta.TinyAudioBackbone(
+        state_dict=wav2vec_bert_params_to_torch(jaudio.TinyAudioBackbone().params), device="cpu")
+    video = tv.TinyVideoBackbone(
+        quantize=True, quant_static=True, device="cpu",
+        state_dict=vjepa2_params_to_torch(jvideo.TinyVideoBackbone(quantize=True).params))
+    return audio, video
+
+
+def _trimodal_config(root, study_path, name):
+    """tests/test_experiment_e2e.py::test_experiment_trimodal_end_to_end's
+    config, with two epochs and no modality dropout: its draws come from
+    each package's own generator, so equal losses need none."""
+    cfg = _config(root, study_path, name)
+    cache = cfg["data"]["text_feature"]["infra"]["folder"]
+    cfg["data"]["study"]["enhancers"].append({"name": "ExtractAudioFromVideo"})
+    cfg["data"]["audio_feature"] = {"name": "Wav2VecBert", "model_name": "tiny-random",
+                                    "device": "cpu", "infra": {"folder": cache}}
+    cfg["data"]["video_feature"] = {"name": "VJEPA2", "model_name": "tiny-random",
+                                    "window_batch": 2, "device": "cpu",
+                                    "infra": {"folder": cache}}
+    cfg["brain_model_config"].update(contrastive_enabled=True, contrastive_modalities=["video"],
+                                     modality_dropout=0.0)
+    return cfg
+
+
+def test_trimodal_feature_uids_equal_jax(trimodal_study, tmp_path):
+    root, path = trimodal_study
+    cfg = _trimodal_config(tmp_path, path, "uids")
+    port, ref = Experiment(**cfg), JaxExperiment(**cfg)
+    assert port.infra.uid() == ref.infra.uid()
+    for name in ("audio_feature", "video_feature"):
+        assert config_uid(getattr(port.data, name)) == jax_config_uid(getattr(ref.data, name))
+    # placement and padding stay out of the uids, semantics split them
+    audio, video = cfg["data"]["audio_feature"], cfg["data"]["video_feature"]
+    base_a, base_v = config_uid(ta.Wav2VecBert(**audio)), config_uid(tv.VJEPA2(**video))
+    assert config_uid(ta.Wav2VecBert(**dict(audio, bucket_seconds=0, device="cuda",
+                                            layers=[1.0]))) == base_a
+    assert config_uid(tv.VJEPA2(**dict(video, window_batch=8, sequence_parallel=4,
+                                       device="cuda"))) == base_v
+    assert config_uid(ta.Wav2VecBert(**dict(audio, model_name="other"))) != base_a
+    assert config_uid(tv.VJEPA2(**dict(video, quantize=False))) != base_v
+    for feature, jax_feature in ((ta.Wav2VecBert, jaudio.Wav2VecBert), (tv.VJEPA2, jvideo.VJEPA2)):
+        assert feature._exclude_from_cache_uid(feature()) == jax_feature._exclude_from_cache_uid(
+            jax_feature())
+
+
+def test_trimodal_features_equal_jax(trimodal_study, tiny_audio_video, tmp_path):
+    """Wav2VecBert and VJEPA2 over the synthetic study's Sound and Video
+    events, against the JAX features' own ``_compute`` (tolerances of
+    tests/test_torch_audio.py and tests/test_torch_video.py).  VJEPA2 runs
+    its float backbone here: on these decoded frames the static int8 one
+    rounds a few activations that sit on a rounding tie to the other side
+    of it in one package (the two resizes differ by ~1e-6), which moves
+    whole windows; the int8 path is held to JAX on seeded windows in
+    tests/test_torch_video.py and end to end below."""
+    root, path = trimodal_study
+    cfg = _trimodal_config(tmp_path, path, "features")
+    cfg["data"]["video_feature"].update(quantize=False, quant_static=False)
+    events = Data(**cfg["data"]).get_events()
+    float_video = tv.TinyVideoBackbone(
+        device="cpu", state_dict=vjepa2_params_to_torch(jvideo.TinyVideoBackbone().params))
+    pairs = [("audio_feature", "Sound", tiny_audio_video[0], dict(atol=1e-4, rtol=1e-4)),
+             ("video_feature", "Video", float_video, dict(atol=3e-4, rtol=1e-3))]
+    from algonauts2025_tpu.core import events as jax_events
+    from algonauts2025_tpu_torch.core import events as port_events
+
+    for name, kind, backbone, tol in pairs:
+        rows = events[events.type == kind].drop_duplicates("filepath")
+        assert len(rows) == 3  # two train and one test stimulus
+        fields = [dict(filepath=r.filepath, start=r.start, duration=r.duration, offset=r.offset,
+                       timeline=r.timeline) for r in rows.itertuples()]
+        port_feat = (ta.Wav2VecBert if kind == "Sound" else tv.VJEPA2)(**cfg["data"][name])
+        port_feat.set_backbone(backbone)
+        jax_cls = jaudio.Wav2VecBert if kind == "Sound" else jvideo.VJEPA2
+        jax_feat = jax_cls(**{k: v for k, v in cfg["data"][name].items() if k != "device"})
+        got = list(port_feat._compute([getattr(port_events, kind)(**f) for f in fields]))
+        want = list(jax_feat._compute([getattr(jax_events, kind)(**f) for f in fields]))
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == np.float32
+            np.testing.assert_allclose(g, w, **tol)
+        assert [port_feat.item_uid(e) for e in [getattr(port_events, kind)(**f) for f in fields]] \
+            == [jax_feat.item_uid(e) for e in [getattr(jax_events, kind)(**f) for f in fields]]
+
+
+def test_trimodal_experiment_matches_jax_end_to_end(trimodal_study, tiny_text, tiny_audio_video,
+                                                   tmp_path, monkeypatch):
+    """The twin of tests/test_experiment_e2e.py::test_experiment_trimodal_end_to_end:
+    from the JAX run's initial trunk weights and the JAX tiny backbones'
+    weights, the same per-epoch train loss, pearson.npy and submission."""
+    root, path = trimodal_study
+    ref_exp, ref_out, init_params = _jax_run(_trimodal_config(tmp_path, path, "jax"), monkeypatch)
+    cfg = _trimodal_config(tmp_path, path, "port")
+    exp, out = _port_run(cfg, tiny_text[1], init_params, monkeypatch, *tiny_audio_video)
+    assert set(exp._trainer.model.projectors) == {"text", "audio", "video"}
+    want = [r["train/loss"] for r in ref_exp._trainer.history]
+    got = [r["train/loss"] for r in exp._trainer.history]
+    assert len(got) == len(want) == 2 and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert np.isfinite(out["val/pearson"])
+    # the generator writes test timelines for every release subject
+    _assert_same_artifacts(tmp_path / "run_port", tmp_path / "run_jax", 16,
+                           {"sub-01", "sub-02", "sub-03", "sub-05"})
+    assert sorted(p.name for p in (tmp_path / "cache_port").iterdir()) == sorted(
+        p.name for p in (tmp_path / "cache_jax").iterdir())
+
+
+@pytest.mark.parametrize("feature,hf_model,port_loader", [
+    (ta.Wav2VecBert, "Wav2Vec2BertModel", "load_hf_audio_backbone"),
+    (tv.VJEPA2, "AutoModel", "load_hf_video_backbone"),
+])
+def test_named_audio_video_models_read_local_files_only(monkeypatch, feature, hf_model,
+                                                        port_loader):
+    """A named model is read from the local HF cache only; when it cannot
+    be read the feature raises and keeps no backbone (no random weights)."""
+    import transformers
+
+    seen = {}
+
+    def missing(name, **kwargs):
+        seen.update(kwargs, name=name)
+        raise OSError("not in the local cache")
+
+    monkeypatch.setattr(getattr(transformers, hf_model), "from_pretrained", missing)
+    feat = feature(device="cpu")
+    with pytest.raises(RuntimeError, match="refusing to substitute random weights"):
+        feat.backbone
+    assert seen == {"name": feat.model_name, "local_files_only": True}
+    assert feat._backbone is None and port_loader in (ta.__all__ + tv.__all__)
+
+
+def test_audio_of_a_video_event_reads_its_wav_sibling(trimodal_study, tmp_path):
+    """Wav2VecBert on a ``Video`` event reads the ``.wav`` demuxed beside it,
+    as the JAX feature does."""
+    from algonauts2025_tpu.core import events as jax_events
+    from algonauts2025_tpu_torch.core import events as port_events
+
+    root, path = trimodal_study
+    mkv = sorted(path.rglob("*.mkv"))[0]
+    fields = dict(filepath=str(mkv), start=0.0, duration=10.0, offset=3.0, frequency=4.0,
+                  timeline="t")
+    got, got_sr = ta.Wav2VecBert(device="cpu")._read_mono_zscore(port_events.Video(**fields))
+    want, want_sr = jaudio.Wav2VecBert()._read_mono_zscore(jax_events.Video(**fields))
+    assert got_sr == want_sr == 16000 and got.shape == want.shape == (10 * 16000,)
+    np.testing.assert_array_equal(got, want)
