@@ -11,8 +11,11 @@ cache uid, lifecycle and artifacts (config.yaml, metrics.csv, pearson.npy,
 last.ckpt, submission.npy / .zip).  ``accelerator`` picks the trainer's
 device: "cuda" is the card (``runtime.default_device``, which raises where
 there is none), "cpu" runs on the host.  One device only: ``n_devices`` or
-``model_parallel`` above 1, and ``profile=True``, raise until the parallel
-strategies and the profiler are ported (ROADMAP queue 1 items 6 and 5).
+``model_parallel`` above 1 raise until the parallel strategies are ported
+(ROADMAP queue 1 item 6).  ``profile=True`` writes a ``torch.profiler``
+trace of the first train epoch to ``<folder>/profile/trace.json``.  After
+a run the trainer's device memory is released (``BrainTrainer.release``),
+so that a grid's members can run one after another in one process.
 
 Differences by design (as in the JAX package):
 - no Lightning: the trainer is ``training.trainer.BrainTrainer``;
@@ -91,7 +94,7 @@ class Experiment(pydantic.BaseModel):
     # one device raises until the parallel strategies are ported
     n_devices: int | None = None
     model_parallel: int = pydantic.Field(default=1, ge=1)
-    profile: bool = False  # a profiler trace of the training (not ported yet)
+    profile: bool = False  # torch.profiler trace of the first train epoch
 
     infra: TaskInfra = TaskInfra(version="1")
 
@@ -132,18 +135,13 @@ class Experiment(pydantic.BaseModel):
             )
 
     def _device(self) -> torch.device:
-        """The trainer's one device; the JAX package's mesh and profiler
-        options raise until they are ported."""
+        """The trainer's one device; the JAX package's mesh options raise
+        until they are ported."""
         if (self.n_devices or 1) > 1 or self.model_parallel > 1:
             raise NotImplementedError(
                 f"n_devices={self.n_devices}, model_parallel={self.model_parallel}: "
                 "data and tensor parallelism are not ported yet (ROADMAP queue 1 "
                 "item 6, parallel strategies)"
-            )
-        if self.profile:
-            raise NotImplementedError(
-                "profile=True: utils/profiling is not ported yet (ROADMAP queue 1 "
-                "item 5, orchestration and tooling)"
             )
         return default_device(None if self.accelerator == "cuda" else self.accelerator)
 
@@ -182,6 +180,8 @@ class Experiment(pydantic.BaseModel):
             # a failed fit/eval/submission must still finalize the logger
             # (flush trailing metrics, mark the wandb run finished)
             run_logger.finish()
+            if self._trainer is not None:
+                self._trainer.release()
 
     def _run_with_logger(self, run_logger) -> dict[str, float]:
         device = self._device()
@@ -227,6 +227,7 @@ class Experiment(pydantic.BaseModel):
                 folder=self.infra.folder,
                 seed=self.seed if self.seed is not None else 0,
                 fast_dev_run=self.fast_dev_run,
+                profile_dir=Path(self.infra.folder) / "profile" if self.profile else None,
             ),
             device=device,
         )

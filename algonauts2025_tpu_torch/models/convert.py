@@ -9,18 +9,20 @@ parameters the tree lacks.  ``vjepa2_params_to_torch`` does the same for
 the V-JEPA2 video backbone, whose scanned layers sit under ``layers/``, and
 ``llama_params_to_torch`` for the Llama text backbone, likewise, and
 ``wav2vec_bert_params_to_torch`` for the w2v-BERT audio backbone, whose
-scanned layers sit under ``layers/layer/``.
+scanned layers sit under ``layers/layer/``.  ``fmri_mlp_params_to_torch``
+maps the FmriMlp's auto-named flax modules by its config.
 """
 
 from __future__ import annotations
 
+import itertools
 import typing as tp
 
 import numpy as np
 import torch
 
-__all__ = ["flax_params_to_torch", "vjepa2_params_to_torch", "llama_params_to_torch",
-           "wav2vec_bert_params_to_torch"]
+__all__ = ["flax_params_to_torch", "fmri_mlp_params_to_torch", "vjepa2_params_to_torch",
+           "llama_params_to_torch", "wav2vec_bert_params_to_torch"]
 
 #: flax module names whose torch counterpart has the same name
 _SAME = {
@@ -241,6 +243,71 @@ def flax_params_to_torch(params: tp.Mapping[str, tp.Any]) -> dict[str, torch.Ten
             if name in out:
                 raise ValueError(f"two flax leaves map to {name}")
             out[name] = torch.tensor(np.asarray(array, dtype=np.float32))
+    if unmatched:
+        raise KeyError(f"flax leaves with no torch counterpart: {unmatched}")
+    return out
+
+
+def _fmri_mlp_modules(config: tp.Any) -> dict[str, str]:
+    """flax module name -> port module name, in the JAX FmriMlp's creation
+    order (its Dense_<i> and _ActNorm_<i> numbers follow the config)."""
+    cfg = config
+    dense = (f"Dense_{i}" for i in itertools.count())
+    act_norm = (f"_ActNorm_{i}/LayerNorm_0" for i in itertools.count())
+    names = {}
+    if cfg.time_agg == "in_linear":
+        names[next(dense)] = "time_in"
+    if cfg.subject_layers:
+        names["SubjectLayers_0"] = "subject_layers"
+    if cfg.use_tr_embeds:
+        names["Embed_0"] = "tr_embed"
+    if not cfg.use_tr_layer:
+        names[next(dense)] = "input"
+    names[next(act_norm)] = "norm_in.norm"
+    for i in range(cfg.n_blocks):
+        names[next(dense)] = f"blocks.{i}.dense"
+        names[next(act_norm)] = f"blocks.{i}.act_norm.norm"
+    if cfg.time_agg == "out_linear":
+        names[next(dense)] = "time_out"
+    names[next(dense)] = "output"
+    heads = cfg.output_head_config
+    prefixes = [f"heads.{name}" for name in heads] if isinstance(heads, dict) else ["head"]
+    if heads is not None:
+        names.update({f"Mlp_{i}": prefix for i, prefix in enumerate(prefixes)})
+    return names
+
+
+#: leaves inside an Mlp head: flax module kind -> port list
+_MLP_PARTS = {"Dense": "layers", "LayerNorm": "norms", "PReLU": "prelus"}
+
+
+def fmri_mlp_params_to_torch(params: tp.Mapping[str, tp.Any],
+                             config: tp.Any) -> dict[str, torch.Tensor]:
+    """The JAX FmriMlp's ``params`` -> the port's FmriMlp state_dict, for the
+    ``FmriMlpConfig`` both were built from.  Dense kernels (in, out) become
+    Linear weights (out, in); ``tr_weights`` (T, C, H) keeps its layout."""
+    modules = _fmri_mlp_modules(config)
+    out: dict[str, torch.Tensor] = {}
+    unmatched = []
+    for path, value in _flatten(params):
+        *parents, leaf = path
+        module = "/".join(parents)
+        head = modules.get(parents[0]) if parents and parents[0].startswith("Mlp_") else None
+        if not parents and leaf in ("tr_weights", "tr_bias"):
+            name = leaf
+        elif head is not None and len(parents) == 2 and parents[1].rsplit("_", 1)[0] in _MLP_PARTS:
+            kind, index = parents[1].rsplit("_", 1)
+            leaf_name = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+            name = f"{head}.{_MLP_PARTS[kind]}.{index}.{leaf_name}"
+            value = np.swapaxes(value, -1, -2) if leaf == "kernel" else value
+        elif module in modules and leaf in ("kernel", "bias", "scale", "embedding", "weights"):
+            leaf_name = {"kernel": "weight", "scale": "weight", "embedding": "weight"}.get(leaf, leaf)
+            name = f"{modules[module]}.{leaf_name}"
+            value = np.swapaxes(value, -1, -2) if leaf == "kernel" else value
+        else:
+            unmatched.append("/".join(path))
+            continue
+        out[name] = torch.tensor(np.asarray(value, dtype=np.float32))
     if unmatched:
         raise KeyError(f"flax leaves with no torch counterpart: {unmatched}")
     return out

@@ -53,7 +53,8 @@ class FmriEncoderConfig(pydantic.BaseModel):
     heads: int = 8
     bf16: bool = False
     remat: bool = False
-    #: with remat: selective checkpoint policy (None = full remat)
+    #: with remat: selective checkpoint policy ("save_attn_out" keeps each
+    #: layer's attention branch output; None = full remat)
     remat_policy: str | None = None
 
     def build(

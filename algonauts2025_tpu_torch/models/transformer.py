@@ -32,10 +32,11 @@ __all__ = [
 ]
 
 
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
-    """flax's Dense kernel init (truncated normal, variance 1/fan_in) on a
-    torch (out, in) weight."""
-    std = math.sqrt(1.0 / weight.shape[-1]) / 0.87962566103423978
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None,
+                  fan_in: int | None = None) -> torch.Tensor:
+    """flax's Dense kernel init (truncated normal, variance 1/fan_in); the
+    fan-in defaults to the last axis of a torch (out, in) weight."""
+    std = math.sqrt(1.0 / (weight.shape[-1] if fan_in is None else fan_in)) / 0.87962566103423978
     return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
@@ -131,11 +132,18 @@ class EncoderBlock(nn.Module):
         self.ff_norm = _norm(dim, use_scalenorm, device)
         self.ff = FeedForward(dim, ff_mult, ff_dropout, device=device)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        branch = self.attn(self.attn_norm(x), mask)
+    def attention_branch(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+        """attn(norm(x)), after ``to_out`` and before the residual add: the
+        tensor the JAX block tags ``attn_out``."""
+        return self.attn(self.attn_norm(x), mask)
+
+    def residuals_and_ff(self, x: torch.Tensor, branch: torch.Tensor) -> torch.Tensor:
         x = (x if self.res_scale_attn is None else x * self.res_scale_attn) + branch
         branch = self.ff(self.ff_norm(x))
         return (x if self.res_scale_ff is None else x * self.res_scale_ff) + branch
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        return self.residuals_and_ff(x, self.attention_branch(x, mask))
 
 
 class TransformerEncoder(nn.Module):
@@ -159,16 +167,12 @@ class TransformerEncoder(nn.Module):
         device=None,
     ) -> None:
         super().__init__()
-        if remat_policy is not None:
-            if remat_policy == "save_attn_out":
-                raise NotImplementedError(
-                    "remat_policy='save_attn_out' is not ported yet (ROADMAP, queue 1)"
-                )
+        if remat_policy not in (None, "save_attn_out"):
             raise ValueError(f"unknown remat_policy {remat_policy!r} (known: 'save_attn_out')")
         dh = dim_head or dim // heads
         rotary_dim = max(dh // 2, 32) if rotary_pos_emb else 0
         rotary_dim = min(rotary_dim, dh)
-        self.causal, self.remat = causal, remat
+        self.causal, self.remat, self.remat_policy = causal, remat, remat_policy
         self.blocks = nn.ModuleList(
             EncoderBlock(
                 dim, heads, dh, rotary_dim, ff_mult, attn_dropout, ff_dropout,
@@ -195,7 +199,15 @@ class TransformerEncoder(nn.Module):
             t = x.shape[1]
             mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()[None, None]
         for block in self.blocks:
-            if self.remat and torch.is_grad_enabled():
+            if self.remat and torch.is_grad_enabled() and self.remat_policy == "save_attn_out":
+                # two checkpointed regions meeting at the attention branch's
+                # output: each layer keeps its input and that output, and the
+                # backward recomputes the rest.  (An op-name policy of
+                # torch.utils.checkpoint would not see inside the attention
+                # kernel's autograd.Function.)
+                branch = checkpoint(block.attention_branch, x, mask, use_reentrant=False)
+                x = checkpoint(block.residuals_and_ff, x, branch, use_reentrant=False)
+            elif self.remat and torch.is_grad_enabled():
                 # full remat: keep only the block input, recompute the rest
                 x = checkpoint(block, x, mask, use_reentrant=False)
             else:

@@ -30,6 +30,7 @@ __all__ = [
     "GroupedMetric",
     "TopkAcc",
     "Rank",
+    "OnlinePearsonCorr",
     "MetricConfig",
     "build_metric",
 ]
@@ -291,13 +292,22 @@ class GroupedMetricConfig(BaseMetricConfig):
     def build(self, n_groups: int | None = None) -> Metric:
         if self.metric_name == "MultidimPearsonCorrCoef":
             return GroupedPearson(n_groups=n_groups or 8, **self.kwargs)
-        classes = {"Rank": Rank, "TopkAcc": TopkAcc}
+        classes = _groupable_metric_classes()
         if self.metric_name not in classes:
-            raise NotImplementedError(
-                f"GroupedMetric over {self.metric_name!r} is not ported yet "
-                f"(ROADMAP, queue 1); ported: MultidimPearsonCorrCoef, {sorted(classes)}"
+            raise ValueError(
+                f"GroupedMetric over {self.metric_name!r}: unknown metric, "
+                f"use one of {sorted(classes)}"
             )
         return GroupedMetric(lambda: classes[self.metric_name](**self.kwargs))
+
+
+def _groupable_metric_classes() -> dict[str, type]:
+    return {
+        "MultidimPearsonCorrCoef": MultidimPearsonCorrCoef,
+        "OnlinePearsonCorr": OnlinePearsonCorr,
+        "Rank": Rank,
+        "TopkAcc": TopkAcc,
+    }
 
 
 class TopkAccConfig(BaseMetricConfig):
@@ -317,8 +327,43 @@ class RankConfig(BaseMetricConfig):
         return Rank(reduction=self.reduction, relative=self.relative)
 
 
+class OnlinePearsonCorr(MultidimPearsonCorrCoef):
+    """Streaming Pearson with the reference's dim / reduction surface
+    (the sufficient-statistics accumulator already is online)."""
+
+    def __init__(self, dim: int = 0, reduction: str | None = "mean"):
+        self.dim = dim
+        self.reduction = reduction
+        super().__init__()
+
+    def update(self, preds, target, groups=None) -> None:
+        if self.dim == 1:
+            preds, target = preds.T, target.T
+        super().update(preds, target)
+
+    def compute(self):
+        if self._state is None:
+            raise MetricNeverUpdated("update() must run before compute()")
+        corr = compute_pearson(self._state)
+        if self.reduction == "mean":
+            return float(torch.nanmean(corr))
+        if self.reduction == "sum":
+            return float(torch.nansum(corr))
+        return corr.cpu().numpy()
+
+
+class OnlinePearsonCorrConfig(BaseMetricConfig):
+    name: tp.Literal["OnlinePearsonCorr"] = "OnlinePearsonCorr"
+    dim: int = 0
+    reduction: str | None = "mean"
+
+    def build(self, n_groups: int | None = None) -> Metric:
+        return OnlinePearsonCorr(dim=self.dim, reduction=self.reduction)
+
+
 MetricConfig = tp.Annotated[
-    tp.Union[PearsonMetricConfig, GroupedMetricConfig, TopkAccConfig, RankConfig],
+    tp.Union[PearsonMetricConfig, GroupedMetricConfig, TopkAccConfig, RankConfig,
+             OnlinePearsonCorrConfig],
     pydantic.Field(discriminator="name"),
 ]
 
@@ -326,6 +371,4 @@ MetricConfig = tp.Annotated[
 def build_metric(config: tp.Any, n_groups: int | None = None) -> Metric:
     if isinstance(config, BaseMetricConfig):
         return config.build(n_groups)
-    if isinstance(config, dict) and config.get("name") == "OnlinePearsonCorr":
-        raise NotImplementedError("OnlinePearsonCorr is not ported yet (ROADMAP, queue 1)")
     return pydantic.TypeAdapter(MetricConfig).validate_python(config).build(n_groups)

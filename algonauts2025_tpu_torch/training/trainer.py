@@ -10,13 +10,17 @@ The port of algonauts2025_tpu/training/trainer.py on one device:
   ``swa_lr`` inside the schedule;
 - streaming metrics updated on the device per eval batch;
 - best (on the monitor) and last checkpoints written with ``torch.save``,
-  with optimizer and SWA state for an exact resume.
+  with optimizer and SWA state for an exact resume;
+- with ``profile_dir``, a ``torch.profiler`` trace of the first train epoch
+  (one range per step, ``utils.profiling``);
+- ``release()`` hands the card's memory back after a run.
 
 Data and tensor parallelism are not ported yet (ROADMAP, queue 1 item 10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -29,6 +33,7 @@ import torch
 
 from ..data.dataset import SegmentData, to_device
 from ..runtime import default_device
+from ..utils.profiling import step_range, trace
 from .metrics import Metric, MetricNeverUpdated
 from .optim import OptimConfig
 
@@ -55,6 +60,8 @@ class TrainerConfig:
     folder: str | Path | None = None
     seed: int = 33
     fast_dev_run: bool = False
+    #: a torch.profiler trace of the first train epoch goes here (trace.json)
+    profile_dir: str | Path | None = None
 
 
 def _to_host(tree: tp.Any) -> tp.Any:
@@ -200,16 +207,9 @@ class BrainTrainer:
 
         for epoch in range(start_epoch, n_epochs):
             t0 = time.time()
-            losses = []
-            for i, batch in enumerate(train_loader_fn(epoch)):
-                if cfg.limit_train_batches is not None and i >= cfg.limit_train_batches:
-                    break
-                if cfg.fast_dev_run and i >= 1:
-                    break
-                loss, _aux = self.train_step(to_device(batch.data, self.device))
-                losses.append(loss)
-                if cfg.log_every_n_steps and (i + 1) % cfg.log_every_n_steps == 0:
-                    logger.info("epoch %d step %d: train/loss=%.5f", epoch, i, float(loss))
+            traced = cfg.profile_dir is not None and epoch == start_epoch
+            with trace(cfg.profile_dir) if traced else contextlib.nullcontext():
+                losses = self._train_epoch(train_loader_fn(epoch), epoch, traced)
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
 
             val_metrics = self.evaluate(val_loader_fn(), split="val")
@@ -272,6 +272,34 @@ class BrainTrainer:
             if last_host_state is not None:
                 last_host_state = {**last_host_state, "params": self._swa_params}
             self.save_checkpoint("last", epoch=n_epochs - 1, host_state=last_host_state)
+
+    def _train_epoch(self, loader: tp.Iterable[SegmentData], epoch: int,
+                     traced: bool) -> list[torch.Tensor]:
+        cfg = self.config
+        losses = []
+        for i, batch in enumerate(loader):
+            if cfg.limit_train_batches is not None and i >= cfg.limit_train_batches:
+                break
+            if cfg.fast_dev_run and i >= 1:
+                break
+            with step_range(i) if traced else contextlib.nullcontext():
+                loss, _aux = self.train_step(to_device(batch.data, self.device))
+            losses.append(loss)
+            if cfg.log_every_n_steps and (i + 1) % cfg.log_every_n_steps == 0:
+                logger.info("epoch %d step %d: train/loss=%.5f", epoch, i, float(loss))
+        return losses
+
+    def release(self) -> None:
+        """Give the device memory of a finished run back: the weights go to
+        the meta device, and the optimizer (which holds the parameters it
+        was built over) and the metric states are dropped.  ``history`` and
+        ``callback_metrics`` stay; the trainer cannot step, evaluate or
+        save after this."""
+        self.optimizer = None
+        self.model.to("meta")
+        self._swa_params = None
+        for metric in self.metrics.values():
+            metric.reset()
 
     def _current_lr(self) -> float:
         return 0.0 if self.schedule is None else float(self.schedule(self.step))

@@ -110,6 +110,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import gc
+import io
+import itertools
 import json
 import re
 import statistics
@@ -118,6 +120,7 @@ import sys
 import tempfile
 import threading
 import time
+import zipfile
 from pathlib import Path
 from unittest import mock
 
@@ -126,7 +129,7 @@ import torch
 
 from algonauts2025_tpu_torch.config import ConfDict
 from algonauts2025_tpu_torch.core.events import Sound
-from algonauts2025_tpu_torch.data import SegmentData, prefetch_to_device, to_device
+from algonauts2025_tpu_torch.data import SegmentData, SegmentDataset, prefetch_to_device, to_device
 from algonauts2025_tpu_torch.data.synthetic import make_synthetic_study
 from algonauts2025_tpu_torch.experiment import Experiment
 from algonauts2025_tpu_torch.experiment import data as experiment_data
@@ -139,11 +142,13 @@ from algonauts2025_tpu_torch.features.text import (
     encode_word_stream,
 )
 from algonauts2025_tpu_torch.features.video import (
-    TorchVideoBackbone, _calibrated_static_model, encode_window_stream,
+    VJEPA2, TorchVideoBackbone, _calibrated_static_model, encode_window_stream,
 )
+from algonauts2025_tpu_torch.grids import average_submissions, run_ensemble
+from algonauts2025_tpu_torch.grids import run_grid as run_grid_cli
 from algonauts2025_tpu_torch.grids.defaults import default_config
 from algonauts2025_tpu_torch.io import wav as wavio
-from algonauts2025_tpu_torch.models import FmriEncoderConfig
+from algonauts2025_tpu_torch.models import FmriEncoderConfig, FmriMlpConfig
 from algonauts2025_tpu_torch.models.backbones import llama, vjepa2
 from algonauts2025_tpu_torch.models.backbones.llama import LLAMA_3P2_3B, LlamaBackbone, LlamaConfig
 from algonauts2025_tpu_torch.models.backbones.vjepa2 import (
@@ -159,6 +164,7 @@ from algonauts2025_tpu_torch.ops import quant
 from algonauts2025_tpu_torch.ops.layer_agg import aggregate_layers
 from algonauts2025_tpu_torch.ops.resample import resample_poly
 from algonauts2025_tpu_torch.scripts import bench_attn
+from algonauts2025_tpu_torch.utils.profiling import step_summary
 from algonauts2025_tpu_torch.training import (
     BrainTrainer, OptimConfig, TrainerConfig, build_loss, build_metric,
 )
@@ -1406,7 +1412,8 @@ OPTIM = {
 }
 
 
-def make_trainer(feature_dims, n_outputs, device=None, metrics=(), **model_kw):
+def make_trainer(feature_dims, n_outputs, device=None, metrics=(), optim=OPTIM, loss="MSELoss",
+                 **model_kw):
     cfg = FmriEncoderConfig(
         n_subjects=4, modality_dropout=0.3, remat=True, contrastive_enabled=True,
         contrastive_modalities=["video"], **model_kw,
@@ -1414,8 +1421,8 @@ def make_trainer(feature_dims, n_outputs, device=None, metrics=(), **model_kw):
     model = cfg.build(feature_dims, n_outputs=n_outputs, n_output_timesteps=100)
     return BrainTrainer(
         model=model,
-        loss_fn=build_loss({"name": "MSELoss"}),
-        optim_config=OptimConfig(**OPTIM),
+        loss_fn=build_loss({"name": loss}),
+        optim_config=OptimConfig(**optim),
         metrics={f"val/{m['log_name']}": build_metric(m, n_groups=4) for m in metrics},
         config=TrainerConfig(n_epochs=1, folder=None, save_checkpoints=False, seed=SEED,
                              contrastive_weight=0.1),
@@ -1512,6 +1519,7 @@ def main_path(n_steps: int = 5, n_eval: int = 2, n_predict: int = 1) -> dict:
         step_s.append(time.perf_counter() - t0)
         if not all(np.isfinite([losses[-1], *(v.item() for v in aux.values())])):
             raise SystemExit(f"non-finite train loss {losses[-1]} / {aux}")
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     t0 = time.perf_counter()
     val = trainer.evaluate(evals[:n_eval], split="val")
     eval_s = time.perf_counter() - t0
@@ -1539,7 +1547,8 @@ def main_path(n_steps: int = 5, n_eval: int = 2, n_predict: int = 1) -> dict:
     profile_run("one flagship train step", lambda: trainer.train_step(train[-1].data)[0].item(),
                 statistics.median(step_s[1:]) * 1e3, top=15)
     return {"attention": launches["attention"], "step_s": statistics.median(step_s[1:]),
-            "peak_gb": peak_gb, "n_params": n_params}
+            "peak_gb": peak_gb, "n_params": n_params, "losses": losses,
+            "train_peak_gb": train_peak_gb, "steps": len(train)}
 
 
 # phase 9: the port's Experiment.  The study of the text-only run: the four
@@ -1749,7 +1758,7 @@ def experiment_path(root: Path, llama: TorchTextBackbone, trunk_step_s: float) -
     if computed or rerun["flash_masked"] or not rerun["attention"]:
         raise SystemExit("the rerun computed features or launched the text kernel")
     return {"seconds": clock.seconds, "total_s": total_s, "step_s": step_s, "peak_gb": peak_gb,
-            "launches": launches, "n_steps": n_steps, "idle": idle,
+            "launches": launches, "n_steps": n_steps, "idle": idle, "study": study,
             "step_range": (min(sec for sec, _ in full), max(sec for sec, _ in full))}
 
 
@@ -1877,10 +1886,383 @@ def trimodal_path(root: Path, llama: TorchTextBackbone, audio: TorchAudioBackbon
     if {k: launches[k] for k in expected} != expected or not (
             launches["attention"] and launches["flash_masked"]):  # rows 1 and 2
         raise SystemExit("the trimodal Experiment did not launch the kernels as expected")
-    return {"seconds": clock.seconds, "total_s": total_s, "peak_gb": peak_gb, "launches": launches}
+    return {"seconds": clock.seconds, "total_s": total_s, "peak_gb": peak_gb, "launches": launches,
+            "cfg": cfg}
+
+
+# phase 10: the model soup through run_ensemble -> launch_sweep -> run_grid
+# over phase 9's trimodal study and caches; a profiled Experiment over phase
+# 9's text study; save_attn_out against phase 4's full remat; the optimizers,
+# schedulers, losses and FmriMlp of this slice on the card against the CPU
+SOUP_MIN_MEMBERS = 4
+#: the soup's axes the members must cover between them, with the values required
+SOUP_COVER = {
+    "loss.name": {"SmoothL1Loss", "HuberLoss"},
+    "data.layer_aggregation": {None, "group_mean"},
+    "brain_model_config.layer_aggregation": {"cat", "mean"},
+    "brain_model_config.feature_aggregation": {"cat", "sum"},
+    "brain_model_config.subject_embedding": {True, False},
+}
+#: the GB a soup member may leave allocated on the card behind it
+SOUP_LEFT_GB = 1.0
+#: average_submissions' own settings (its __main__), and the limit of the
+#: ensemble against its NumPy recomputation (relative to the largest value)
+ENSEMBLE = dict(weigh_by_score=True, per_voxel_weights=True, temperature=0.3)
+ENSEMBLE_RTOL = 1e-6
+GRID_SEEDS = 5
+#: rows 2, 4, 6 and 7: the feature kernels, which a run over cached features never launches
+FEATURE_KERNELS = ("flash_masked", "flash_attention", "w8a8", "int8_mlp")
+PROFILE_FIRST, PROFILE_LAST = 6, 4
+#: the profiled run trains two epochs (the trace covers the first): does the
+#: second start slow as well?
+PROFILE_EPOCHS = 2
+REMAT_STEPS = 3
+REMAT_RTOL = 1e-5
+NEW_OPTIMIZERS = ("SGD", "Adagrad", "RMSprop", "Lion", "Adamax", "NAdam", "RAdam", "Adadelta",
+                  "Adafactor", "LAMB")
+NEW_SCHEDULERS = {"CosineAnnealingLR": {"eta_min": 1e-6}, "StepLR": {"step_size": 1, "gamma": 0.5},
+                  "LinearLR": {"start_factor": 0.5, "total_iters": 3}}
+SOUP_LOSSES = ("SmoothL1Loss", "HuberLoss", "PearsonLoss", "MSELoss")
+FMRI_MLP_CASES = (dict(hidden=1024, n_blocks=4, subject_layers=True, n_subjects=4),
+                  dict(hidden=1024, n_blocks=2, use_tr_layer=True, use_tr_embeds=True,
+                       n_repetition_times=4, time_agg="out_linear"))
+FMRI_MLP_ATOL = 1e-5
+
+
+def counted_features(computed: list):
+    """Patches that record every event a feature computes (none may)."""
+    def counted(compute):
+        def wrapper(self, events):
+            computed.extend(events)
+            yield from compute(self, events)
+        return wrapper
+    return [mock.patch.object(cls, "_compute", counted(cls._compute))
+            for cls in (LLAMA3p2, Wav2VecBert, VJEPA2)]
+
+
+class MemberClock:
+    """Per ``Experiment.run`` inside a job array: seconds, the peak, the
+    memory allocated on the card before and after (after a collection),
+    and the kernels launched."""
+
+    def __init__(self):
+        self.members: list[dict] = []
+
+    def wrap(self, run):
+        def wrapper(experiment):
+            gc.collect()
+            torch.cuda.synchronize()
+            before, counts = torch.cuda.memory_allocated(), launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = run(experiment)
+            torch.cuda.synchronize()
+            seconds, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+            gc.collect()
+            now = launch_counts()
+            self.members.append({
+                "seconds": seconds, "peak_gb": peak / 1e9,
+                "before_gb": before / 1e9, "after_gb": torch.cuda.memory_allocated() / 1e9,
+                "launches": {k: now[k] - counts[k] for k in now}, "out": out,
+            })
+            return out
+        return wrapper
+
+
+def soup_update(trimodal_cfg: dict) -> dict:
+    """Overrides of the default config: phase 9's trimodal study and caches,
+    the card, one epoch, the metrics stream to local JSONL only (offline
+    wandb; the sweep names each run in ``wandb_config``)."""
+    cfg = ConfDict(trimodal_cfg)
+    keys = ["data.study.path", "data.study.infra.folder", "data.neuro.infra.folder",
+            *(f"data.{feature}.infra.folder" for feature in FEATURES)]
+    return {**{key: cfg[key] for key in keys}, "accelerator": "cuda", "n_epochs": 1,
+            "wandb_config.offline": True}
+
+
+def soup_axes(config) -> str:
+    return ", ".join(f"{key.removeprefix('brain_model_config.')}={config[key]}"
+                     for key in SOUP_COVER)
+
+
+def recompute_ensemble(grid: Path) -> dict:
+    """The score-weighted per-voxel ensemble in NumPy float64 from the
+    members' submission zips and pearson.npy: softmax over members of
+    pearson / temperature at each voxel, weighted sum of predictions."""
+    folders = sorted(path.parent for path in grid.glob("*/submission.zip"))
+    preds, pearson = [], []
+    for folder in folders:
+        with zipfile.ZipFile(folder / "submission.zip") as zf:
+            preds.append(np.load(io.BytesIO(zf.read(zf.namelist()[0])), allow_pickle=True).item())
+        pearson.append(np.load(folder / "pearson.npy").astype(np.float64))
+    logits = np.stack(pearson) / ENSEMBLE["temperature"]
+    weights = np.exp(logits - logits.max(axis=0))
+    weights /= weights.sum(axis=0)
+    return {subject: {chunk: np.einsum("rv,rtv->tv", weights, np.stack(
+                [np.asarray(p[subject][chunk], np.float64) for p in preds]))
+                      for chunk in chunks}
+            for subject, chunks in preds[0].items()}
+
+
+def soup_path(root: Path, trimodal_cfg: dict) -> dict:
+    """The ensemble as users run it: ``grids/run_ensemble.py`` samples the
+    soup, ``_launch.launch_sweep`` expands it over the default config and
+    ``experiment/grid.run_grid`` runs the members one after another in this
+    process, at full width over phase 9's trimodal features (no feature
+    computed); ``average_submissions`` combines them."""
+    savedir, update = root / "soup", soup_update(trimodal_cfg)
+    for seed in range(1000):  # the first sample seed whose draws cover SOUP_COVER
+        planned = run_ensemble.main(["--dry-run", "--n-models", str(SOUP_MIN_MEMBERS),
+                                     "--sample-seed", str(seed), "--savedir", str(savedir)],
+                                    base_update=update)
+        if all({c[key] for c in planned} >= values for key, values in SOUP_COVER.items()):
+            break
+    else:
+        raise SystemExit(f"no sample seed below 1000 covers {SOUP_COVER} with "
+                         f"{SOUP_MIN_MEMBERS} members")
+    grid = run_grid_cli.main(["--dry-run", "--seeds", str(GRID_SEEDS), "--savedir", str(savedir)],
+                             base_update=update)
+    log(f"soup: --sample-seed {seed}, {len(planned)} members: "
+        f"{[soup_axes(c) for c in planned]}; run_grid --dry-run: {len(grid)} configs "
+        f"({len(run_grid_cli.LAYER_CHOICES)} layer choices x {GRID_SEEDS} seeds)")
+    if len(grid) != len(run_grid_cli.LAYER_CHOICES) * GRID_SEEDS:
+        raise SystemExit("run_grid --dry-run did not enumerate the layer x seed grid")
+    clock, computed = MemberClock(), []
+    patches = [mock.patch.object(Experiment, "run", clock.wrap(Experiment.run)),
+               *counted_features(computed)]
+    for patch in patches:
+        patch.start()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        configs = run_ensemble.main(
+            ["--n-models", str(SOUP_MIN_MEMBERS), "--sample-seed", str(seed), "--savedir",
+             str(savedir), "--non-interactive"], base_update=update)
+    finally:
+        for patch in patches:
+            patch.stop()
+    soup_s = time.perf_counter() - t0
+    for member, config in zip(clock.members, configs):
+        log(f"soup member ({soup_axes(config)}, dropout "
+            f"{config['brain_model_config.modality_dropout']}, layers {config['data.layers']}): "
+            f"{member['seconds']:.2f} s, peak {member['peak_gb']:.2f} GB, allocated "
+            f"{member['before_gb']:.3f} -> {member['after_gb']:.3f} GB, launches "
+            f"{ {k: v for k, v in member['launches'].items() if v} }, val/pearson "
+            f"{member['out'].get('val/pearson')}")
+    t0 = time.perf_counter()
+    zip_path = average_submissions.average_submissions(savedir / run_ensemble.SWEEP, **ENSEMBLE)
+    average_s = time.perf_counter() - t0
+    got = np.load(zip_path.with_suffix(".npy"), allow_pickle=True).item()
+    want = recompute_ensemble(savedir / run_ensemble.SWEEP)
+    rel = max(np.abs(got[s][c] - w).max() / np.abs(w).max()
+              for s, chunks in want.items() for c, w in chunks.items())
+    log(f"soup: {len(clock.members)} members in {soup_s:.2f} s, {len(computed)} feature events "
+        f"computed; average_submissions {ENSEMBLE} in {average_s:.3f} s: {zip_path.name}, "
+        f"{sum(len(c) for c in got.values())} chunks, against its NumPy recomputation max "
+        f"rel {rel:.3e} (tol {ENSEMBLE_RTOL:.0e})")
+    if len(clock.members) != len(configs) or len(configs) < SOUP_MIN_MEMBERS or computed:
+        raise SystemExit("the soup did not run its members over the cached features")
+    for member in clock.members:
+        launches = member["launches"]
+        if not launches["attention"] or any(launches[k] for k in FEATURE_KERNELS):
+            raise SystemExit(f"a soup member launched {launches}: row 1 in every member, "
+                             f"{FEATURE_KERNELS} never")
+        if abs(member["after_gb"] - member["before_gb"]) > SOUP_LEFT_GB:
+            raise SystemExit("a soup member left its device memory allocated")
+        if not np.isfinite(member["out"]["val/pearson"]):
+            raise SystemExit("a soup member gave a non-finite val/pearson")
+    if set(got) != set(want) or not rel <= ENSEMBLE_RTOL:
+        raise SystemExit("the ensemble submission disagrees with its NumPy recomputation")
+    return {"members": clock.members, "seed": seed, "seconds": soup_s,
+            "attention": sum(m["launches"]["attention"] for m in clock.members)}
+
+
+class LoaderClock:
+    """Host intervals (one clock) of the train steps, unsynchronised as the
+    Experiment runs them, and of the loader's item assembly on its threads
+    (``SegmentDataset.__getitem__``): how much loader work each step
+    overlaps."""
+
+    def __init__(self):
+        self.steps: list[tuple[int, float, float]] = []
+        self.items: list[tuple[float, float]] = []
+
+    def step(self, fn):
+        def wrapper(trainer, data, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(trainer, data, *args, **kwargs)
+            self.steps.append((len(trainer.history), t0, time.perf_counter()))
+            return out
+        return wrapper
+
+    def item(self, fn):
+        def wrapper(dataset, idx):
+            t0 = time.perf_counter()
+            out = fn(dataset, idx)
+            self.items.append((t0, time.perf_counter()))
+            return out
+        return wrapper
+
+    def per_step(self) -> list[dict]:
+        """Per train step: its epoch, host seconds, and the loader's
+        item-seconds (summed over threads) and items inside its window."""
+        out = []
+        for epoch, t0, t1 in self.steps:
+            inside = [(max(s, t0), min(e, t1)) for s, e in self.items if s < t1 and e > t0]
+            out.append({"epoch": epoch, "host_s": t1 - t0, "items": len(inside),
+                        "loader_s": sum(e - s for s, e in inside)})
+        return out
+
+
+def profiled_experiment(root: Path, study: Path) -> dict:
+    """``Experiment(profile=True)`` over phase 9's text study and feature
+    cache, in a fresh run folder, no checkpoint: the trace of its first
+    epoch, read back step by step; and, for both of its two epochs, the
+    loader's item assembly inside each step."""
+    cfg = experiment_config(root, study, "profile_run", n_epochs=PROFILE_EPOCHS)
+    cfg.update(profile=True, save_checkpoints=False)
+    computed, loader = [], LoaderClock()
+    patches = [*counted_features(computed),
+               mock.patch.object(BrainTrainer, "train_step", loader.step(BrainTrainer.train_step)),
+               mock.patch.object(SegmentDataset, "__getitem__",
+                                 loader.item(SegmentDataset.__getitem__))]
+    for patch in patches:
+        patch.start()
+    reset_counts()
+    log(f"profiled Experiment: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved by the caching allocator before it")
+    t0 = time.perf_counter()
+    try:
+        out = Experiment(**cfg).run()
+        torch.cuda.synchronize()
+    finally:
+        for patch in patches:
+            patch.stop()
+    total_s, launches = time.perf_counter() - t0, launch_counts()
+    trace = Path(cfg["infra"]["folder"]) / "profile" / "trace.json"
+    if not trace.is_file():
+        raise SystemExit(f"Experiment(profile=True) wrote no trace at {trace}")
+    t0 = time.perf_counter()
+    steps = step_summary(trace)
+    read_s = time.perf_counter() - t0
+    log(f"profiled Experiment (text, flagship trunk, {PROFILE_EPOCHS} epochs, the first traced): "
+        f"{total_s:.2f} s, trace "
+        f"{trace.stat().st_size / 1e6:.1f} MB read in {read_s:.2f} s, {len(computed)} words "
+        f"computed, launches {launches}; metrics {json.dumps(out)}")
+    for step in steps:
+        calls = sorted(step["runtime_ms"].items(), key=lambda kv: -kv[1])[:4]
+        log(f"  step {step['step']}: host {step['host_ms']:.2f} ms (waited {step['wait_ms']:.2f} ms "
+            f"before), device busy {step['device_ms']:.2f} ms, {step['launches']} launches; "
+            f"runtime calls {[(name, round(ms, 2)) for name, ms in calls]}")
+
+    def mean(part, key):
+        return statistics.mean(s[key] for s in part)
+
+    first, last = steps[:PROFILE_FIRST], steps[-PROFILE_LAST:]
+    for label, part in ((f"first {PROFILE_FIRST}", first), (f"last {PROFILE_LAST}", last)):
+        log(f"  {label} steps: host {mean(part, 'host_ms'):.2f} ms, device busy "
+            f"{mean(part, 'device_ms'):.2f} ms, launches {mean(part, 'launches'):.1f}, wait "
+            f"{mean(part, 'wait_ms'):.2f} ms")
+    overlap = loader.per_step()
+    log("  loader inside each train step (epoch, host s, item-seconds on its threads, items): "
+        f"{[(o['epoch'], round(o['host_s'], 3), round(o['loader_s'], 3), o['items']) for o in overlap]}")
+    if len(steps) < PROFILE_FIRST + PROFILE_LAST or computed or launches["flash_masked"]:
+        raise SystemExit(f"the profiled Experiment traced {len(steps)} steps or computed features")
+    if not all(s["device_ms"] > 0 and s["launches"] > 0 for s in steps) or not launches["attention"]:
+        raise SystemExit("the trace holds a train step with no work on the card")
+    if len({o["epoch"] for o in overlap}) != PROFILE_EPOCHS:
+        raise SystemExit("the profiled Experiment did not train its epochs")
+    return {"steps": steps, "total_s": total_s, "first": first, "last": last,
+            "loader": overlap}
+
+
+def remat_path(full: dict) -> dict:
+    """Phase 4's flagship trainer with ``remat_policy="save_attn_out"``: the
+    same seed and the first batches of phase 4 give the same losses as its
+    full remat."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    train = [make_batch(FLAGSHIP_DIMS, 1000, 16, 298, gen) for _ in range(REMAT_STEPS)]
+    trainer = make_trainer(FLAGSHIP_DIMS, 1000, metrics=METRICS, remat_policy="save_attn_out")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trainer.init_state(train[0], total_steps=100)
+    losses, step_s = [], []
+    for batch in train:
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batch.data)[0].item())
+        step_s.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = launch_counts()["attention"]
+    trainer.release()
+    want = full["losses"][:REMAT_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    depth = trainer.model.config.depth
+    log(f"save_attn_out, {REMAT_STEPS} flagship steps: losses {losses} against full remat's "
+        f"{want}, max rel {rel:.3e} (tol {REMAT_RTOL:.0e}); peak {peak_gb:.2f} GB against "
+        f"{full['train_peak_gb']:.2f} GB; step {statistics.median(step_s[1:]):.4f} s against "
+        f"{full['step_s']:.4f} s; row-1 launches a step {launches / REMAT_STEPS:.1f} against "
+        f"full remat's {2 * depth}")
+    if not rel <= REMAT_RTOL or launches != 2 * depth * REMAT_STEPS:
+        raise SystemExit("save_attn_out disagrees with full remat")
+    return {"peak_gb": peak_gb, "step_s": statistics.median(step_s[1:]), "losses": losses}
+
+
+def check_optimizers_against_cpu() -> None:
+    """The small trunk trained 3 steps on the card and on the CPU from the
+    same weights with each optimizer of this slice (each scheduler and each
+    soup loss in turn): the losses agree to 1e-4 (phase 3's limit)."""
+    dims = {"text": (2, 40), "audio": (2, 16), "video": (2, 24)}
+    small = dict(hidden=96, depth=2, heads=2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    batches = [make_batch(dims, 20, 4, 200, gen) for _ in range(3)]
+    worst = {}
+    for name, (scheduler, kwargs), loss in zip(NEW_OPTIMIZERS, itertools.cycle(NEW_SCHEDULERS.items()),
+                                               itertools.cycle(SOUP_LOSSES)):
+        optim = {"optimizer": {"name": name, "lr": 1e-3},
+                 "scheduler": {"name": scheduler, "kwargs": kwargs}}
+        gpu = make_trainer(dims, 20, optim=optim, loss=loss, **small)
+        cpu = make_trainer(dims, 20, device="cpu", optim=optim, loss=loss, **small)
+        gpu.init_state(batches[0], total_steps=3)
+        cpu.init_state(batches[0], total_steps=3)
+        cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+        rel = 0.0
+        for batch in batches:
+            lg = gpu.train_step(batch.data)[0].item()
+            lc = cpu.train_step({k: v.cpu() for k, v in batch.data.items()})[0].item()
+            rel = max(rel, abs(lg - lc) / abs(lc))
+        worst[f"{name}/{scheduler}/{loss}"] = rel
+    log(f"small trunk, 3 steps, card vs CPU per optimizer / scheduler / loss: max rel loss diff "
+        f"{ {k: f'{v:.2e}' for k, v in worst.items()} } (tol 1e-4)")
+    if not all(v <= 1e-4 for v in worst.values()):
+        raise SystemExit("an optimizer on the card disagrees with the CPU")
+
+
+def check_fmri_mlp_against_cpu() -> None:
+    """FmriMlp on the card and on the CPU from the same weights."""
+    errs = []
+    for i, kw in enumerate(FMRI_MLP_CASES):
+        cfg = FmriMlpConfig(**kw)
+        cpu = cfg.build(n_in_channels=2 * 1408, n_outputs=1000)
+        cpu.init_weights(torch.Generator().manual_seed(SEED + i))
+        gpu = cfg.build(n_in_channels=2 * 1408, n_outputs=1000, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        x = torch.randn((8, 2, 1408, kw.get("n_repetition_times", 1)),
+                        generator=torch.Generator().manual_seed(SEED))
+        subjects = torch.arange(8) % 4
+        with torch.no_grad():
+            want = cpu(x, subjects)
+            got = gpu(x.cuda(), subjects.cuda()).cpu()
+        errs.append(float((got - want).abs().max()))
+    log(f"FmriMlp {len(FMRI_MLP_CASES)} configs, card vs CPU: max abs diff {errs} "
+        f"(tol {FMRI_MLP_ATOL:.0e})")
+    if not all(e <= FMRI_MLP_ATOL for e in errs):
+        raise SystemExit("FmriMlp on the card disagrees with the CPU")
 
 
 def main() -> None:
+    started = time.perf_counter()
     name_and_limit = card()
     kind = torch.cuda.get_device_name(0)
     peaks = peaks_for(kind)
@@ -1925,6 +2307,25 @@ def main() -> None:
         trimodal = trimodal_path(root / "trimodal", llama, audio["backbone"])
         log(f"trimodal Experiment: {trimodal['total_s']:.2f} s, peak {trimodal['peak_gb']:.2f} GB "
             f"on {name_and_limit}")
+        del llama
+        t10 = time.perf_counter()
+        soup = soup_path(root / "phase10", trimodal["cfg"])
+        log(f"soup: {len(soup['members'])} members (--sample-seed {soup['seed']}) in "
+            f"{soup['seconds']:.2f} s, peaks {[round(m['peak_gb'], 2) for m in soup['members']]} GB "
+            f"on {name_and_limit}")
+        profiled = profiled_experiment(root / "text", experiment["study"])
+        log(f"profiled Experiment: {profiled['total_s']:.2f} s; first {PROFILE_FIRST} / last "
+            f"{PROFILE_LAST} steps: host "
+            f"{statistics.mean(s['host_ms'] for s in profiled['first']):.2f} / "
+            f"{statistics.mean(s['host_ms'] for s in profiled['last']):.2f} ms, device busy "
+            f"{statistics.mean(s['device_ms'] for s in profiled['first']):.2f} / "
+            f"{statistics.mean(s['device_ms'] for s in profiled['last']):.2f} ms on {name_and_limit}")
+    remat = remat_path(run)
+    log(f"save_attn_out: peak {remat['peak_gb']:.2f} GB, step {remat['step_s']:.4f} s (full remat: "
+        f"{run['train_peak_gb']:.2f} GB, {run['step_s']:.4f} s) on {name_and_limit}")
+    check_optimizers_against_cpu()
+    check_fmri_mlp_against_cpu()
+    log(f"phase 10: {time.perf_counter() - t10:.1f} s")
     # each kernel's launches from the path that runs it
     launches = {**video["launches"], "attention": run["attention"],
                 "flash_masked": text["launches"]["flash_masked"],
@@ -1934,6 +2335,7 @@ def main() -> None:
         record["launches"] = launches[record["name"]]
     if not all(record["launches"] for record in kernels):
         raise SystemExit(f"a kernel was launched no time on its path: {launches}")
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all on {name_and_limit}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -322,7 +322,6 @@ def test_experiment_test_metrics_with_real_targets(study, tmp_path, monkeypatch)
 @pytest.mark.parametrize("override,match", [
     ({"n_devices": 2}, "item 6"),
     ({"model_parallel": 2}, "item 6"),
-    ({"profile": True}, "item 5"),
 ])
 def test_unported_options_raise(study, tmp_path, override, match):
     root, path = study
@@ -376,8 +375,9 @@ def test_named_model_without_weights_raises(monkeypatch):
 
 
 def test_loss_config_surface():
-    """Experiment.loss takes the JAX package's loss names; the unported
-    ones validate and raise when built."""
+    """Experiment.loss takes the JAX package's loss names, and every one
+    builds (each held to JAX in test_torch_losses_optim.py); a changed
+    torch kwarg and an unknown name raise."""
     import pydantic
 
     from algonauts2025_tpu_torch.training.losses import LossConfig, build_loss, mse_loss
@@ -386,8 +386,10 @@ def test_loss_config_surface():
     assert build_loss(adapter.validate_python({"name": "MSELoss"})) is mse_loss
     pearson = build_loss(adapter.validate_python({"name": "PearsonLoss", "dim": 0}))
     assert pearson(torch.ones(3, 2), torch.ones(3, 2)).ndim == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_loss(adapter.validate_python({"name": "HuberLoss"}))
+    huber = build_loss(adapter.validate_python({"name": "HuberLoss"}))
+    assert float(huber(torch.zeros(2, 2), torch.full((2, 2), 3.0))) == pytest.approx(2.5)
+    with pytest.raises(ValueError, match="unsupported kwargs"):
+        build_loss(adapter.validate_python({"name": "HuberLoss", "kwargs": {"reduction": "sum"}}))
     with pytest.raises(pydantic.ValidationError):
         adapter.validate_python({"name": "NoSuchLoss"})
 

@@ -72,5 +72,8 @@ def test_exceptions_are_all_used():
 def test_the_walk_sees_every_module():
     names = {_name(p) for p in _sources()}
     assert {"io/hdf5.py", "data/levenshtein.py", "grids/defaults.py", "grids/test_run.py",
-            "chip_smoke.py"} <= names
-    assert len(names) > 60
+            "chip_smoke.py", "experiment/grid.py", "experiment/accuracy_gate.py",
+            "utils/profiling.py", "models/fmri_mlp.py", "grids/_launch.py", "grids/run_grid.py",
+            "grids/run_ensemble.py", "grids/run_config.py", "grids/average_submissions.py",
+            "scripts/real_data_gate.py"} <= names
+    assert len(names) > 70

@@ -137,9 +137,11 @@ def test_init_matches_flax_statistics():
 def test_transformer_config_guard():
     with pytest.raises(NotImplementedError, match="rel_pos_bias"):
         transformer.TransformerEncoderConfig(rel_pos_bias=True).build(48)
-    with pytest.raises(NotImplementedError, match="save_attn_out"):
+    transformer.TransformerEncoder(dim=48, depth=1, heads=4, remat=True,
+                                   remat_policy="save_attn_out", device="meta")
+    with pytest.raises(ValueError, match="unknown remat_policy 'bogus'"):
         transformer.TransformerEncoder(dim=48, depth=1, heads=4, remat=True,
-                                       remat_policy="save_attn_out")
+                                       remat_policy="bogus")
     enc = transformer.TransformerEncoderConfig(depth=1, heads=4).build(48, device="meta")
     assert len(enc.blocks) == 1
 
