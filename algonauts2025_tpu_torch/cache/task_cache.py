@@ -178,8 +178,7 @@ class TaskInfra(pydantic.BaseModel):
         The launcher command (env ALGONAUTS_TPU_LAUNCHER) is invoked once
         per task with a JSON config path appended — e.g. a script that
         queues a job running ``python -m
-        algonauts2025_tpu_torch.grids.run_config <config.json>`` (that
-        module is not ported yet: ROADMAP queue 1, orchestration).  Semantics
+        algonauts2025_tpu_torch.grids.run_config <config.json>``.  Semantics
         mirror the reference's exca job arrays (modeling_utils
         utils.py:124-155): already-completed elements are skipped, up to
         ``max_workers`` launches run concurrently, each task gets its own

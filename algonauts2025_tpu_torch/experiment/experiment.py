@@ -10,9 +10,13 @@ The port of algonauts2025_tpu/experiment/experiment.py: the same fields,
 cache uid, lifecycle and artifacts (config.yaml, metrics.csv, pearson.npy,
 last.ckpt, submission.npy / .zip).  ``accelerator`` picks the trainer's
 device: "cuda" is the card (``runtime.default_device``, which raises where
-there is none), "cpu" runs on the host.  One device only: ``n_devices`` or
-``model_parallel`` above 1 raise until the parallel strategies are ported
-(ROADMAP queue 1 item 6).  ``profile=True`` writes a ``torch.profiler``
+there is none), "cpu" runs on the host.  ``n_devices`` and
+``model_parallel`` shape the ``("data", "model")`` mesh of the trainer
+(``parallel.get_mesh``).  A torch process drives one device, so a run
+over N devices is N processes (``torchrun --nproc-per-node N -m
+algonauts2025_tpu_torch.grids.run_config task.json``); ``n_devices`` that
+differs from the launch's world size raises and names that command.  Rank
+0 writes the run's files.  ``profile=True`` writes a ``torch.profiler``
 trace of the first train epoch to ``<folder>/profile/trace.json``.  After
 a run the trainer's device memory is released (``BrainTrainer.release``),
 so that a grid's members can run one after another in one process.
@@ -37,11 +41,13 @@ import numpy as np
 import pandas as pd
 import pydantic
 import torch
+import torch.distributed as dist
 import yaml
 
 from ..cache.task_cache import TaskInfra
 from ..data.dataset import SegmentDataset, prefetch_to_device
 from ..models.fmri_encoder import FmriEncoderConfig
+from ..parallel.mesh import get_mesh
 from ..runtime import default_device
 from ..training.losses import LossConfig, build_loss
 from ..training.metrics import MetricConfig, MultidimPearsonCorrCoef, build_metric
@@ -68,6 +74,11 @@ N_OUTPUT_TIMESTEPS = 100
 START_JITTER_SECONDS = 10.0
 
 
+def _writer() -> bool:
+    """Whether this process writes the run's files: rank 0 of a launch."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 class Experiment(pydantic.BaseModel):
     model_config = pydantic.ConfigDict(extra="forbid")
 
@@ -90,8 +101,10 @@ class Experiment(pydantic.BaseModel):
     save_checkpoints: bool = True
     checkpoint_path: str | None = None
     test_only: bool = False
-    # device topology, kept for the JAX package's config surface: more than
-    # one device raises until the parallel strategies are ported
+    # device topology (the mesh): n_devices = the launch's processes, one
+    # device each (None = the world size), model_parallel = the
+    # tensor-parallel width; the mesh is (n_devices // model_parallel,
+    # model_parallel)
     n_devices: int | None = None
     model_parallel: int = pydantic.Field(default=1, ge=1)
     profile: bool = False  # torch.profiler trace of the first train epoch
@@ -125,6 +138,8 @@ class Experiment(pydantic.BaseModel):
     def setup_run(self) -> None:
         folder = Path(self.infra.folder)
         folder.mkdir(parents=True, exist_ok=True)
+        if not _writer():
+            return
         with open(folder / "config.yaml", "w") as f:
             yaml.safe_dump(
                 self.model_dump(mode="json"),
@@ -135,15 +150,20 @@ class Experiment(pydantic.BaseModel):
             )
 
     def _device(self) -> torch.device:
-        """The trainer's one device; the JAX package's mesh options raise
-        until they are ported."""
-        if (self.n_devices or 1) > 1 or self.model_parallel > 1:
-            raise NotImplementedError(
-                f"n_devices={self.n_devices}, model_parallel={self.model_parallel}: "
-                "data and tensor parallelism are not ported yet (ROADMAP queue 1 "
-                "item 6, parallel strategies)"
-            )
+        """This process's device: the card of its rank, or the CPU."""
         return default_device(None if self.accelerator == "cuda" else self.accelerator)
+
+    def _mesh(self):
+        """The trainer's ("data", "model") mesh, None on one device.
+        ``n_devices`` other than the launch's world size, and a
+        ``model_parallel`` that does not divide it, raise in ``get_mesh``:
+        a run never trains on fewer devices than it asked for."""
+        n = self.n_devices
+        if n is None:
+            n = dist.get_world_size() if dist.is_initialized() else 1
+        if n <= 1 and self.model_parallel <= 1:
+            return None
+        return get_mesh(n_devices=n, model_parallel=self.model_parallel)
 
     def _feature_dims(self, batch) -> tuple[dict, int]:
         feature_dims: dict[str, tuple[int, int] | None] = {}
@@ -185,6 +205,8 @@ class Experiment(pydantic.BaseModel):
 
     def _run_with_logger(self, run_logger) -> dict[str, float]:
         device = self._device()
+        mesh = self._mesh()
+        writer = _writer()
         if self.seed is not None:
             np.random.seed(self.seed)
 
@@ -230,8 +252,9 @@ class Experiment(pydantic.BaseModel):
                 profile_dir=Path(self.infra.folder) / "profile" if self.profile else None,
             ),
             device=device,
+            mesh=mesh,
         )
-        trainer._logger = run_logger
+        trainer._logger = run_logger if writer else None
         self._trainer = trainer
 
         batch_size = self.data.batch_size
@@ -323,7 +346,8 @@ class Experiment(pydantic.BaseModel):
                         -1, y_true.shape[1]
                     )
                     pv.update(torch.from_numpy(yp), torch.from_numpy(yt))
-            np.save(Path(self.infra.folder) / "pearson.npy", pv.per_voxel())
+            if writer:
+                np.save(Path(self.infra.folder) / "pearson.npy", pv.per_voxel())
 
         # test/* metrics: only computable when the test split carries REAL
         # fmri targets (held-out-with-targets studies).  The Algonauts
@@ -358,12 +382,13 @@ class Experiment(pydantic.BaseModel):
 
         # metrics.csv (reference main.py:504-506)
         all_metrics = {**trainer.callback_metrics, **results}
-        pd.DataFrame([all_metrics]).to_csv(
-            Path(self.infra.folder) / "metrics.csv", index=False
-        )
+        if writer:
+            pd.DataFrame([all_metrics]).to_csv(
+                Path(self.infra.folder) / "metrics.csv", index=False
+            )
 
         if test_ds is not None and len(test_ds):
-            self.write_submission(trainer, test_ds, batch_size)
+            self.write_submission(trainer, test_ds, batch_size, writer=writer)
         return {k: float(v) for k, v in all_metrics.items() if isinstance(v, (int, float))}
 
     def _get_checkpoint_path(self) -> tuple[Path | None, bool]:
@@ -408,8 +433,11 @@ class Experiment(pydantic.BaseModel):
         return season
 
     def write_submission(
-        self, trainer: BrainTrainer, test_ds: SegmentDataset, batch_size: int
+        self, trainer: BrainTrainer, test_ds: SegmentDataset, batch_size: int,
+        writer: bool = True,
     ) -> None:
+        """The challenge submission from the test split's predictions (every
+        rank predicts; only ``writer`` writes)."""
         submission: dict[str, dict[str, list[np.ndarray]]] = {}
         seasons: dict[str, set[str]] = {}
         loader = test_ds.batches(batch_size=batch_size)
@@ -454,6 +482,8 @@ class Experiment(pydantic.BaseModel):
                     )
                 out[subject][chunk] = result[:n_samples]
 
+        if not writer:
+            return
         path = Path(self.infra.folder) / "submission.npy"
         np.save(path, out)  # type: ignore[arg-type]
         with zipfile.ZipFile(path.with_suffix(".zip"), "w") as zipf:

@@ -28,6 +28,8 @@ import torch
 from ..core.events import Event, Word
 from ..core.timed import TimedArray
 from ..models.backbones.llama import LlamaBackbone, LlamaConfig, params_from_hf
+from ..parallel.mesh import LocalMesh, local_mesh
+from ..parallel.pipeline import pipelined_llama_states, stage_layers
 from ..runtime import default_device
 from .base import LayeredFeatureBase
 
@@ -149,22 +151,33 @@ class _HostCopy:
 
 
 class TorchTextBackbone:
-    """A LlamaBackbone + tokenizer on one device (the CUDA card unless
-    ``device`` says otherwise)."""
+    """A LlamaBackbone + tokenizer on ``device`` (the CUDA card unless it
+    says otherwise).
+
+    With ``pipeline_mesh`` (a ``LocalMesh`` with axis "stage") the layer
+    stack splits into contiguous stages, each stage's layers placed once on
+    its device, and every forward runs the GPipe schedule of
+    ``parallel.pipelined_llama_states``: the per-device weight memory is
+    L/S of the stack.  The embedding and final norm stay on ``device``."""
 
     BUCKETS = (32, 64, 128, 256, 512, 1024)
     #: word-count buckets for the chain pooling matrix
     WBUCKETS = (16, 64, 256, 1024)
 
     def __init__(self, model: LlamaBackbone, tokenizer, pad_id: int,
-                 device: str | torch.device | None = None, pipeline_mesh=None):
-        if pipeline_mesh is not None:
-            raise NotImplementedError(
-                "pipeline_mesh: stage-sharding the layer stack over torch.distributed is not "
-                "ported yet (ROADMAP queue 1 item 10)"
-            )
+                 device: str | torch.device | None = None, pipeline_mesh: LocalMesh | None = None):
         self.device = default_device(device)
-        self.model = model.to(self.device).eval()
+        self.pipeline_mesh = pipeline_mesh
+        if pipeline_mesh is None:
+            self.model = model.to(self.device).eval()
+        else:
+            stages = stage_layers(model.cfg.num_layers, pipeline_mesh.shape["stage"])
+            model.embed_tokens.to(self.device)
+            model.final_norm.to(self.device)
+            for stage, dev in zip(stages, pipeline_mesh.devices):
+                for i in stage:
+                    model.layers[i].to(dev)
+            self.model = model.eval()
         self.tokenizer = tokenizer
         self.pad_id = pad_id
         # incremental tokenization state (see _tokenize): per-word id cache
@@ -226,7 +239,14 @@ class TorchTextBackbone:
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
         ids_t = torch.from_numpy(np.asarray(ids)).to(self.device, torch.long)
         mask_t = torch.from_numpy(np.asarray(mask)).to(self.device, torch.int32)
-        return self.model(ids_t, mask_t)
+        if self.pipeline_mesh is None:
+            return self.model(ids_t, mask_t)
+        # the largest power-of-2 divisor of B up to 4: a smaller GPipe
+        # bubble without splitting below one row
+        b = ids_t.shape[0]
+        m = 4 if b % 4 == 0 else (2 if b % 2 == 0 else 1)
+        return pipelined_llama_states(self.model.cfg, self.model, ids_t, mask_t,
+                                      self.pipeline_mesh, n_microbatches=m)
 
     @torch.no_grad()
     def hidden_states(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
@@ -296,6 +316,7 @@ class TinyTextBackbone(TorchTextBackbone):
         seed: int = 0,
         state_dict: tp.Mapping[str, torch.Tensor] | None = None,
         device: str | torch.device | None = None,
+        pipeline_mesh: LocalMesh | None = None,
     ):
         device = default_device(device)
         cfg = LlamaConfig(
@@ -314,7 +335,8 @@ class TinyTextBackbone(TorchTextBackbone):
             model.init_random(torch.Generator(device=device).manual_seed(seed))
         else:
             model.load_state_dict(state_dict)
-        super().__init__(model, HashTokenizer(vocab), pad_id=0, device=device)
+        super().__init__(model, HashTokenizer(vocab), pad_id=0, device=device,
+                         pipeline_mesh=pipeline_mesh)
 
 
 def load_text_backbone(
@@ -323,6 +345,7 @@ def load_text_backbone(
     tokenizer,
     pad_id: int,
     device: str | torch.device | None = None,
+    pipeline_stages: int = 0,
 ) -> TorchTextBackbone:
     """A bf16 Llama from an HF LlamaModel's state dict and config dict
     (``config.json`` keys: vocab_size, hidden_size, intermediate_size,
@@ -343,16 +366,29 @@ def load_text_backbone(
         rope_theta=c["rope_theta"],
         dtype=torch.bfloat16,
     )
-    model = LlamaBackbone(cfg, device=device)
+    mesh = _pp_mesh(pipeline_stages, device)
+    # pipelined: the converted weights stay on the host until each layer
+    # goes to its stage's device
+    model = LlamaBackbone(cfg, device=device if mesh is None else "cpu")
     model.load_state_dict(params_from_hf(state_dict, cfg))
-    return TorchTextBackbone(model, tokenizer, pad_id, device=device)
+    return TorchTextBackbone(model, tokenizer, pad_id, device=device, pipeline_mesh=mesh)
+
+
+def _pp_mesh(pipeline_stages: int, device: torch.device) -> LocalMesh | None:
+    """A ("stage",) mesh of ``pipeline_stages`` stages (None when off): the
+    first N cards, raising when fewer are visible, or N stages on the CPU."""
+    if pipeline_stages <= 1:
+        return None
+    return local_mesh(pipeline_stages, "stage", "cpu" if device.type == "cpu" else None)
 
 
 def load_hf_text_backbone(
-    model_name: str, device: str | torch.device | None = None
+    model_name: str, device: str | torch.device | None = None, pipeline_stages: int = 0
 ) -> TorchTextBackbone:
     """The bf16 backbone of a named HF checkpoint (``AutoModel`` and its
-    tokenizer), read from the local HF cache only: nothing is downloaded."""
+    tokenizer), read from the local HF cache only: nothing is downloaded.
+    ``pipeline_stages`` > 1 splits the layer stack over that many devices
+    (``_pp_mesh``)."""
     from transformers import AutoModel, AutoTokenizer
 
     tokenizer = AutoTokenizer.from_pretrained(
@@ -363,7 +399,8 @@ def load_hf_text_backbone(
     if pad_id is None:  # `or` would discard a legitimate pad id of 0
         pad_id = tokenizer.eos_token_id
     return load_text_backbone(
-        hf_model.state_dict(), hf_model.config.to_dict(), tokenizer, pad_id, device=device
+        hf_model.state_dict(), hf_model.config.to_dict(), tokenizer, pad_id, device=device,
+        pipeline_stages=pipeline_stages,
     )
 
 
@@ -476,8 +513,8 @@ class LLAMA3p2(LayeredFeatureBase):
     batch_size: int = 8
     max_context_tokens: int = 1024
     #: >1 stage-shards the backbone's layer stack over that many devices
-    #: (not ported yet); device topology, not semantics: excluded from the
-    #: cache uid like ``device``
+    #: (pipeline parallelism; see ``TorchTextBackbone``); device topology,
+    #: not semantics: excluded from the cache uid like ``device``
     pipeline_stages: int = 0
 
     event_type: tp.ClassVar[str] = "Word"
@@ -498,20 +535,13 @@ class LLAMA3p2(LayeredFeatureBase):
         # ambiguous when a word itself contains "_" (transcripts hold none)
         return f"{event.text}_{event.context}"  # type: ignore[attr-defined]
 
-    @property
-    def backbone(self) -> TorchTextBackbone:
-        if self._backbone is None and self.pipeline_stages > 1:
-            raise NotImplementedError(
-                "pipeline_stages > 1: stage-sharding the Llama layer stack is not "
-                "ported yet (ROADMAP queue 1 item 6, parallel strategies)"
-            )
-        return super().backbone
-
     def _tiny_backbone(self, device: torch.device) -> TorchTextBackbone:
-        return TinyTextBackbone(device=device)
+        return TinyTextBackbone(device=device,
+                                pipeline_mesh=_pp_mesh(self.pipeline_stages, device))
 
     def _named_backbone(self, device: torch.device) -> TorchTextBackbone:
-        return load_hf_text_backbone(self.model_name, device=device)
+        return load_hf_text_backbone(self.model_name, device=device,
+                                     pipeline_stages=self.pipeline_stages)
 
     def _chain_runs(self, backbone: TorchTextBackbone, events: tp.Sequence[Word]) -> list[list]:
         """[is_chain, (text, context) pairs, token ids] runs of ``events``."""

@@ -7,10 +7,17 @@ mean-pooled over tokens, giving an (L+1, D, T) stack per video, with two
 batches in flight on the device.  ``encode_window_stream`` takes decoded
 windows; the pydantic ``VJEPA2`` feature feeds it from ``Video`` events
 (io/video.py) and caches per (filepath, offset, duration).
+
+A ``LocalMesh`` (parallel/mesh.py) spreads a backbone over local devices,
+as the JAX package spreads it over a mesh: over "data" the window batch
+splits over the devices; with ``sequence_parallel`` each window's frames
+(hence its tokens) split over the shards and attention runs as one exact
+ring over them (parallel/sequence.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import typing as tp
 
 import numpy as np
@@ -22,6 +29,7 @@ from ..models.backbones.vjepa2 import VJEPA2Backbone, VJEPA2Config, params_from_
 from ..ops.quant import calibrate_quant_scales
 from ..ops.threefry import normal as jax_normal
 from ..ops.video_prep import preprocess_frames
+from ..parallel.mesh import LocalMesh, local_mesh
 from ..runtime import default_device
 from .base import LayeredFeatureBase
 
@@ -39,11 +47,6 @@ OUTPUT_HZ = 2.0
 #: each 2 Hz step sees the previous 4 s of video
 WINDOW_SECONDS_BACK = 4.0
 
-_NOT_PORTED_SP = (
-    "sequence parallelism (ring attention over torch.distributed) is not ported yet "
-    "(ROADMAP queue 1 item 10)"
-)
-
 
 class VideoBackbone:
     n_frames: int = 64
@@ -59,7 +62,13 @@ class VideoBackbone:
 
 
 class TorchVideoBackbone(VideoBackbone):
-    """Window encoder on one device (the CUDA card unless ``device`` says otherwise)."""
+    """Window encoder on ``device`` (the CUDA card unless it says otherwise).
+
+    With ``mesh`` (a ``LocalMesh``) the window batch splits over the mesh's
+    devices, each with a copy of the weights; with ``sequence_parallel``
+    the frames of every window split over its shards instead (the model is
+    rebuilt with ``sequence_parallel_axis`` over the same weights).  The
+    values are the one-device path's up to the order of fp sums."""
 
     def __init__(
         self,
@@ -67,13 +76,26 @@ class TorchVideoBackbone(VideoBackbone):
         n_frames: int = 64,
         crop_size: int = 256,
         device: str | torch.device | None = None,
-        mesh=None,
+        mesh: LocalMesh | None = None,
         sequence_parallel: bool = False,
     ):
-        if mesh is not None or sequence_parallel:
-            raise NotImplementedError(_NOT_PORTED_SP)
         self.device = default_device(device)
+        if sequence_parallel:
+            if mesh is None:
+                raise ValueError("sequence_parallel=True requires a mesh")
+            tubelet = model.cfg.tubelet_size
+            if n_frames % (mesh.size * tubelet):
+                raise ValueError(
+                    f"n_frames={n_frames} must split into {mesh.size} shards "
+                    f"of whole tubelets (size {tubelet})"
+                )
+            sp = VJEPA2Backbone(dataclasses.replace(model.cfg, sequence_parallel_axis=mesh.axis_name),
+                                token_pool=model.token_pool, device="meta")
+            sp.load_state_dict(model.state_dict(), assign=True)  # the same tensors
+            model = sp
         self.model = model.to(self.device).eval()
+        self.mesh = mesh
+        self.sequence_parallel = sequence_parallel
         self.n_frames = n_frames
         self.crop_size = crop_size
         if model.cfg.quant_static:
@@ -92,10 +114,18 @@ class TorchVideoBackbone(VideoBackbone):
         waited for (the host copy of a numpy batch is pinned, so its upload
         overlaps the batch before it)."""
         frames = torch.as_tensor(windows)
-        if self.device.type == "cuda" and frames.device.type == "cpu":
+        if self.mesh is not None and not self.sequence_parallel:
+            # the window batch over the mesh's devices, each with its copy
+            parts = [part for part in frames.tensor_split(self.mesh.size) if len(part)]
+            return torch.cat([self._encode(self.model._replica(dev), part, dev).to(self.device)
+                              for part, dev in zip(parts, self.mesh.devices)])
+        return self._encode(self.model, frames, self.device)
+
+    def _encode(self, model: VJEPA2Backbone, frames: torch.Tensor, device: torch.device) -> torch.Tensor:
+        if device.type == "cuda" and frames.device.type == "cpu":
             frames = frames.pin_memory()
-        pixels = preprocess_frames(frames.to(self.device, non_blocking=True), self.crop_size)
-        states = self.model(pixels)
+        pixels = preprocess_frames(frames.to(device, non_blocking=True), self.crop_size)
+        states = model(pixels, mesh=self.mesh) if self.sequence_parallel else model(pixels)
         if states.dim() == 4:  # (L+1, B, N, D) -> token mean
             states = states.mean(dim=2)
         return states.transpose(0, 1)  # (B, L+1, D)
@@ -133,6 +163,8 @@ class TinyVideoBackbone(TorchVideoBackbone):
         quant_static: bool = False,
         state_dict: tp.Mapping[str, torch.Tensor] | None = None,
         device: str | torch.device | None = None,
+        mesh: LocalMesh | None = None,
+        sequence_parallel: bool = False,
     ):
         device = default_device(device)
         cfg = VJEPA2Config(
@@ -147,7 +179,17 @@ class TinyVideoBackbone(TorchVideoBackbone):
             model.load_state_dict(state_dict)
         if quantize and quant_static:
             model = _calibrated_static_model(model, n_frames, crop_size)
-        super().__init__(model, n_frames=n_frames, crop_size=crop_size, device=device)
+        super().__init__(model, n_frames=n_frames, crop_size=crop_size, device=device,
+                         mesh=mesh, sequence_parallel=sequence_parallel)
+
+
+def _sp_mesh(sequence_parallel: int, device: torch.device) -> LocalMesh | None:
+    """A ("seq",) mesh of ``sequence_parallel`` shards (None when off): the
+    first N cards, raising when fewer are visible, or N shards of the CPU
+    (the stand-in for the JAX tests' virtual host devices)."""
+    if sequence_parallel <= 1:
+        return None
+    return local_mesh(sequence_parallel, "seq", "cpu" if device.type == "cpu" else None)
 
 
 def load_video_backbone(
@@ -161,9 +203,8 @@ def load_video_backbone(
     """A V-JEPA2 encoder from an HF checkpoint's state dict and config dict
     (``config.json`` keys: crop_size, patch_size, tubelet_size,
     frames_per_clip, hidden_size, num_hidden_layers, num_attention_heads,
-    mlp_ratio), token-pooled, bf16."""
-    if sequence_parallel > 1:
-        raise NotImplementedError(_NOT_PORTED_SP)
+    mlp_ratio), token-pooled, bf16.  ``sequence_parallel`` > 1 splits each
+    window's tokens over that many devices (``_sp_mesh``)."""
     device = default_device(device)
     c = hf_config
     cfg = VJEPA2Config(
@@ -176,14 +217,16 @@ def load_video_backbone(
     model.load_state_dict(params_from_hf(state_dict, cfg))
     if quantize and quant_static:
         model = _calibrated_static_model(model, cfg.frames_per_clip, cfg.crop_size)
+    mesh = _sp_mesh(sequence_parallel, device)
     return TorchVideoBackbone(model, n_frames=cfg.frames_per_clip, crop_size=cfg.crop_size,
-                              device=device)
+                              device=device, mesh=mesh, sequence_parallel=mesh is not None)
 
 
 def load_hf_video_backbone(
     model_name: str,
     quantize: bool = False,
     quant_static: bool = False,
+    sequence_parallel: int = 0,
     device: str | torch.device | None = None,
 ) -> TorchVideoBackbone:
     """The backbone of a named HF V-JEPA2 checkpoint, read from the local HF
@@ -192,7 +235,8 @@ def load_hf_video_backbone(
 
     hf_model = AutoModel.from_pretrained(model_name, local_files_only=True)
     return load_video_backbone(hf_model.state_dict(), hf_model.config.to_dict(),
-                               quantize=quantize, quant_static=quant_static, device=device)
+                               quantize=quantize, quant_static=quant_static,
+                               sequence_parallel=sequence_parallel, device=device)
 
 
 def encode_window_stream(
@@ -244,9 +288,10 @@ class VJEPA2(LayeredFeatureBase):
     #: with quantize: activation scales calibrated once on a fixed seeded
     #: input, routed through the fused int8 kernels (kernel rows 6 and 7)
     quant_static: bool = True
-    #: >1 would shard the 8192-token window sequence over that many devices
-    #: (not ported yet); device topology, not semantics: excluded from the
-    #: cache uid like ``device`` and ``window_batch``
+    #: >1 splits the 8192-token window sequence over that many devices
+    #: (exact ring attention, parallel/sequence.py); device topology, not
+    #: semantics: excluded from the cache uid like ``device`` and
+    #: ``window_batch``
     sequence_parallel: int = 0
 
     event_type: tp.ClassVar[str] = "Video"
@@ -267,19 +312,15 @@ class VJEPA2(LayeredFeatureBase):
     def item_uid(event: Event) -> str:
         return f"{event.filepath}_{event.offset:.2f}_{event.duration:.2f}"  # type: ignore[attr-defined]
 
-    @property
-    def backbone(self) -> VideoBackbone:
-        if self._backbone is None and self.sequence_parallel > 1:
-            raise NotImplementedError(_NOT_PORTED_SP)
-        return super().backbone
-
     def _tiny_backbone(self, device: torch.device) -> VideoBackbone:
+        mesh = _sp_mesh(self.sequence_parallel, device)
         return TinyVideoBackbone(quantize=self.quantize, quant_static=self.quant_static,
-                                 device=device)
+                                 device=device, mesh=mesh, sequence_parallel=mesh is not None)
 
     def _named_backbone(self, device: torch.device) -> VideoBackbone:
         return load_hf_video_backbone(self.model_name, quantize=self.quantize,
-                                      quant_static=self.quant_static, device=device)
+                                      quant_static=self.quant_static,
+                                      sequence_parallel=self.sequence_parallel, device=device)
 
     def _compute(self, events: tp.Sequence[Video]) -> tp.Iterator[np.ndarray]:
         backbone = self.backbone

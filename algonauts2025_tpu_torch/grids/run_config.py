@@ -4,34 +4,25 @@
 
 The entry point the external launcher (ALGONAUTS_TPU_LAUNCHER, for
 ``infra.cluster="external"``) invokes for each element of a job array.
-The port runs one process on one device: a multi-process launch
-(``WORLD_SIZE`` above 1, or a coordinator address) raises until the
-parallel strategies are ported (ROADMAP queue 1 item 6).
+Under ``torchrun --nproc-per-node N`` each of the N processes runs it: it
+joins the launch's process group first (``parallel.init_distributed``:
+NCCL on the card, gloo for ``accelerator="cpu"``), and the Experiment's
+``n_devices`` must then be N.
 """
 
 from __future__ import annotations
 
 import json
-import os
 import sys
 from pathlib import Path
 
 from ..experiment import Experiment
-
-
-def _check_single_process() -> None:
-    world = int(os.environ.get("WORLD_SIZE", "1") or "1")
-    coordinator = os.environ.get("JAX_COORDINATOR_ADDRESS") or os.environ.get("MASTER_ADDR")
-    if world > 1 or coordinator:
-        raise NotImplementedError(
-            f"WORLD_SIZE={world}, coordinator={coordinator!r}: multi-process runs are not "
-            "ported yet (ROADMAP queue 1 item 6, parallel strategies)"
-        )
+from ..parallel.mesh import init_distributed
 
 
 def main(path: str) -> None:
-    _check_single_process()
     config = json.loads(Path(path).read_text())
+    init_distributed(device="cpu" if config.get("accelerator") == "cpu" else None)
     out = Experiment(**config).run()
     print(json.dumps(out, default=str))
 

@@ -11,17 +11,22 @@ the (L+1, B, N, D) hidden-state stack, or with ``token_pool`` the
 The dtype casts are the JAX package's: bf16 activations, fp32 rotary,
 LayerNorm statistics in fp32 with a bf16 output inside the blocks and an
 fp32 output from the final norm.  With ``quantize`` the denses are w8a8
-int8 (``_QDense``).  On a CUDA card the calibrated static-scale denses, the
-whole MLP and the attention over >= 1024 tokens run the hand-written
-kernels of ops/quant.py and ops/flash_attention.py wherever the JAX
-package runs its Pallas kernels on a TPU; elsewhere (and on the CPU) the
-plain ops run, as the JAX package's XLA path does.  The scanned
-``(L, ...)`` params of the JAX package are one module per layer here
-(``models.convert.vjepa2_params_to_torch`` unstacks them).
+int8 (``_QDense``).  With ``sequence_parallel_axis`` the window's tokens
+split over the shards of a ``LocalMesh`` (``forward(pixels, mesh=)``):
+ring attention (parallel/sequence.py) takes the attention's place, the
+rotary tables are sliced at each shard's global token offset, and the
+token means are averaged over the shards.  On a CUDA card the calibrated
+static-scale denses, the whole MLP and the attention over >= 1024 tokens
+run the hand-written kernels of ops/quant.py and ops/flash_attention.py
+wherever the JAX package runs its Pallas kernels on a TPU; elsewhere (and
+on the CPU) the plain ops run, as the JAX package's XLA path does.  The
+scanned ``(L, ...)`` params of the JAX package are one module per layer
+here (``models.convert.vjepa2_params_to_torch`` unstacks them).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import math
@@ -36,6 +41,7 @@ from torch import nn
 from ...ops.attention import dot_product_attention
 from ...ops.flash_attention import flash_attention
 from ...ops.quant import int8_matmul, int8_matmul_fused, int8_mlp_fused, quantize_dense_params
+from ...parallel.sequence import ring_attention_local
 
 __all__ = ["VJEPA2Config", "VJEPA2Backbone", "VJEPA2Block", "VJEPA2Attention",
            "params_from_hf", "VJEPA2_VITG"]
@@ -58,7 +64,8 @@ class VJEPA2Config:
     #: with quantize: calibrated static activation scales instead of dynamic
     #: per-row maxima (requires ops.quant.calibrate_quant_scales first)
     quant_static: bool = False
-    #: sequence parallelism over a mesh axis: not ported yet
+    #: sequence parallelism: the token axis splits over the shards of a
+    #: ``LocalMesh`` with this axis name (ring attention)
     sequence_parallel_axis: str | None = None
 
     @property
@@ -207,7 +214,8 @@ class VJEPA2Attention(nn.Module):
         self.value = _dense(cfg, d, d, device)
         self.proj = _dense(cfg, d, d, device)
 
-    def forward(self, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    def project(self, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]):
+        """(B, H, N, hd) q, k (rotated) and v of the (B, N, d) input."""
         b, n, d = x.shape
         h = self.cfg.num_heads
         hd = d // h
@@ -216,10 +224,15 @@ class VJEPA2Attention(nn.Module):
         k = self.key(x).reshape(b, n, h, hd).transpose(1, 2)
         v = self.value(x).reshape(b, n, h, hd).transpose(1, 2)
         cos, sin = rope
-        q = _apply_rope(q, cos, sin)
-        k = _apply_rope(k, cos, sin)
-        out = _attention(q, k, v)
-        return self.proj(out.transpose(1, 2).reshape(b, n, d))
+        return _apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v
+
+    def output(self, out: torch.Tensor) -> torch.Tensor:
+        """The projection of the (B, H, N, hd) attention output."""
+        b, h, n, hd = out.shape
+        return self.proj(out.transpose(1, 2).reshape(b, n, h * hd))
+
+    def forward(self, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        return self.output(_attention(*self.project(x, rope)))
 
 
 class VJEPA2Block(nn.Module):
@@ -248,8 +261,13 @@ class VJEPA2Block(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, rope) -> tuple[torch.Tensor, torch.Tensor]:
+        x = x + self.attn(_layer_norm(x, self.norm1, self.cfg.dtype), rope)
+        return self.mlp_residual(x)
+
+    def mlp_residual(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """x + MLP(norm2(x)), and the layer's state (the fp32 token mean
+        with ``token_pool``, else x in fp32)."""
         dt = self.cfg.dtype
-        x = x + self.attn(_layer_norm(x, self.norm1, dt), rope)
         h = _layer_norm(x, self.norm2, dt)
         if self._fused_mlp_ok(h):
             # whole-MLP kernel: both quantizations inside, no fp32 hidden
@@ -271,11 +289,6 @@ class VJEPA2Backbone(nn.Module):
 
     def __init__(self, cfg: VJEPA2Config, token_pool: bool = False, device=None) -> None:
         super().__init__()
-        if cfg.sequence_parallel_axis is not None:
-            raise NotImplementedError(
-                "sequence_parallel_axis: ring attention over torch.distributed is not ported "
-                "yet (ROADMAP queue 1 item 10)"
-            )
         self.cfg = cfg
         self.token_pool = token_pool
         c = 3
@@ -286,6 +299,9 @@ class VJEPA2Backbone(nn.Module):
             VJEPA2Block(cfg, token_pool=token_pool, device=device) for _ in range(cfg.num_layers)
         )
         self.final_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, device=device)
+        #: device -> a copy of this backbone there (the shards of a
+        #: LocalMesh on other devices than this one's); not submodules
+        self._replicas: dict[torch.device, VJEPA2Backbone] = {}
 
     @torch.no_grad()
     def init_random(self, generator: torch.Generator | None = None) -> "VJEPA2Backbone":
@@ -317,7 +333,8 @@ class VJEPA2Backbone(nn.Module):
                 m.static_scale = True
         return self
 
-    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+    def _embed(self, pixels: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W, 3) pixels -> (B, N, D) tubelet tokens in cfg.dtype."""
         cfg = self.cfg
         dt = cfg.dtype
         b, t, hgt, wid, c = pixels.shape
@@ -328,19 +345,90 @@ class VJEPA2Backbone(nn.Module):
         x = x.reshape(b, (t // ts) * (hgt // ps) * (wid // ps), ts * ps * ps * c)
         # bf16 operands, fp32 accumulation (exact products), then bf16
         x = torch.matmul(x.to(dt).float(), self.patch_kernel.to(dt).float()) + self.patch_bias
-        x = x.to(dt)
-        head = _token_mean(x)[None] if self.token_pool else x.float()[None]
-        cos, sin = _rope_tables(x.shape[1], cfg.hidden_size // cfg.num_heads,
+        return x.to(dt)
+
+    def _state(self, x: torch.Tensor) -> torch.Tensor:
+        return _token_mean(x) if self.token_pool else x.float()
+
+    def _final(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.layer_norm(x.float(), self.final_norm.normalized_shape, self.final_norm.weight,
+                         self.final_norm.bias, self.final_norm.eps)
+        return _token_mean(x) if self.token_pool else x
+
+    def _rope(self, n: int, device: torch.device, start: int = 0, total: int | None = None):
+        """The rotary tables of tokens [start, start + n) of ``total``."""
+        cfg = self.cfg
+        cos, sin = _rope_tables(total or n, cfg.hidden_size // cfg.num_heads,
                                 cfg.crop_size, cfg.patch_size)
-        rope = (torch.from_numpy(cos).to(x.device), torch.from_numpy(sin).to(x.device))
+        return tuple(torch.from_numpy(t[start : start + n]).to(device) for t in (cos, sin))
+
+    def forward(self, pixels: torch.Tensor, mesh=None) -> torch.Tensor:
+        """(L+1, B, N, D) hidden states, or (L+1, B, D) token means with
+        ``token_pool``.  With ``cfg.sequence_parallel_axis``, ``mesh`` is the
+        ``LocalMesh`` whose shards split the frames (hence the tokens)."""
+        if self.cfg.sequence_parallel_axis is not None:
+            return self._forward_sequence_parallel(pixels, mesh)
+        x = self._embed(pixels)
+        head = self._state(x)[None]
+        rope = self._rope(x.shape[1], x.device)
         states = []
         for layer in self.layers:
             x, state = layer(x, rope)
             states.append(state)
-        x = F.layer_norm(x.float(), self.final_norm.normalized_shape, self.final_norm.weight,
-                         self.final_norm.bias, self.final_norm.eps)
-        states[-1] = _token_mean(x) if self.token_pool else x
+        states[-1] = self._final(x)
         return torch.cat([head, torch.stack(states)], dim=0)
+
+    def _replica(self, device: torch.device) -> "VJEPA2Backbone":
+        """This backbone on ``device``: itself, or a copy made once."""
+        if device == self.patch_kernel.device:
+            return self
+        if device not in self._replicas:
+            # (the memo leaves the other replicas out of the copy)
+            self._replicas[device] = copy.deepcopy(self, {id(self._replicas): {}}).to(device)
+        return self._replicas[device]
+
+    def _forward_sequence_parallel(self, pixels: torch.Tensor, mesh) -> torch.Tensor:
+        """``forward`` with the frames split into ``mesh``'s shards: every
+        layer runs shard by shard, its attention as one ring over them."""
+        cfg = self.cfg
+        if mesh is None or mesh.axis_name != cfg.sequence_parallel_axis:
+            raise ValueError(
+                f"sequence_parallel_axis={cfg.sequence_parallel_axis!r} needs a LocalMesh "
+                "with that axis name (forward(pixels, mesh=...))"
+            )
+        n = mesh.size
+        if pixels.shape[1] % (n * cfg.tubelet_size):
+            raise ValueError(
+                f"{pixels.shape[1]} frames must split into {n} shards of whole tubelets "
+                f"(size {cfg.tubelet_size})"
+            )
+        home = pixels.device
+        models = [self._replica(dev) for dev in mesh.devices]
+        xs = [m._embed(part.to(dev))
+              for m, part, dev in zip(models, pixels.chunk(n, dim=1), mesh.devices)]
+        n_local = xs[0].shape[1]
+        ropes = [m._rope(n_local, dev, r * n_local, n * n_local)
+                 for r, (m, dev) in enumerate(zip(models, mesh.devices))]
+
+        def assemble(parts: list[torch.Tensor]) -> torch.Tensor:
+            """The global state from the shards': the mean of the token
+            means (equal shard sizes), or the tokens in order."""
+            parts = [part.to(home) for part in parts]
+            return torch.stack(parts).mean(dim=0) if self.token_pool else torch.cat(parts, dim=1)
+
+        states = [assemble([m._state(x) for m, x in zip(models, xs)])]
+        for i in range(cfg.num_layers):
+            layers = [m.layers[i] for m in models]
+            qkv = [layer.attn.project(_layer_norm(x, layer.norm1, cfg.dtype), rope)
+                   for layer, x, rope in zip(layers, xs, ropes)]
+            outs = ring_attention_local(*map(list, zip(*qkv)))
+            shard_states = []
+            for r, layer in enumerate(layers):
+                xs[r], state = layer.mlp_residual(xs[r] + layer.attn.output(outs[r]))
+                shard_states.append(state)
+            states.append(assemble(shard_states))
+        states[-1] = assemble([m._final(x) for m, x in zip(models, xs)])
+        return torch.stack(states)
 
 
 def params_from_hf(state_dict: tp.Mapping[str, tp.Any], cfg: VJEPA2Config) -> dict[str, torch.Tensor]:

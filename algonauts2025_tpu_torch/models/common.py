@@ -46,6 +46,9 @@ class SubjectLayers(nn.Module):
             if use_bias
             else None
         )
+        #: tensor parallelism (parallel.sharding): this rank's parcels of
+        #: ``weights`` and ``bias``; the output is gathered over the ranks
+        self.tp = None
 
     def init_weights(self, generator: torch.Generator | None = None) -> None:
         scale = 1.0 / self.in_channels**0.5
@@ -61,6 +64,8 @@ class SubjectLayers(nn.Module):
                 self.bias.normal_(generator=generator).mul_(scale)
 
     def forward(self, x: torch.Tensor, subjects: torch.Tensor | None) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.enter(x)
         x32 = x.float()
         if self.average_subjects or subjects is None:
             out = torch.einsum("bct,cd->bdt", x32, self.weights.mean(dim=0))
@@ -72,6 +77,8 @@ class SubjectLayers(nn.Module):
             b = None if self.bias is None else self.bias[subjects][:, :, None]
         if b is not None:
             out = out + b
+        if self.tp is not None:
+            out = self.tp.gather(out, 1)
         return out.to(x.dtype)
 
 

@@ -253,8 +253,12 @@ class FmriEncoder(nn.Module):
         training: bool = False,
         pool_outputs: bool = True,
         generator: torch.Generator | None = None,
+        gather_rows: tp.Callable[[torch.Tensor], torch.Tensor] | None = None,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """Predictions + InfoNCE losses from one shared trunk pass."""
+        """Predictions + InfoNCE losses from one shared trunk pass.
+
+        ``gather_rows`` (data parallelism) gathers the rows of the other
+        data ranks: InfoNCE takes its negatives over the global batch."""
         cfg = self.config
         latents = self.get_brain_latents(batch, training, generator)
         x = self._readout(latents, batch, pool_outputs)
@@ -267,9 +271,10 @@ class FmriEncoder(nn.Module):
                 if mod.shape[1] != latents.shape[1]:
                     pmat = self._pool_matrix(mod.shape[1], latents.shape[1], mod.device)
                     mod = torch.einsum("btd,ts->bsd", mod, pmat)
-                losses[modality] = _info_nce(
-                    latents.float(), mod.float(), cfg.contrastive_temperature
-                )
+                q, k = latents.float(), mod.float()
+                if gather_rows is not None:
+                    q, k = gather_rows(q), gather_rows(k)
+                losses[modality] = _info_nce(q, k, cfg.contrastive_temperature)
         return x, losses
 
 

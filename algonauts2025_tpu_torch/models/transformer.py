@@ -15,6 +15,7 @@ import typing as tp
 
 import pydantic
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -79,6 +80,9 @@ class SelfAttention(nn.Module):
         self.out = nn.Linear(heads * dim_head, dim, bias=False, device=device)
         self.dropout = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
         self._angles: dict[tuple[int, torch.device], torch.Tensor] = {}
+        #: tensor parallelism (parallel.sharding): qkv holds h/tp whole heads
+        #: of each of q, k and v, ``out`` the matching input columns
+        self.tp = None
 
     def _rotary(self, t: int, device: torch.device) -> torch.Tensor:
         key = (t, device)
@@ -88,7 +92,10 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         b, t, _ = x.shape
-        h, dh = self.heads, self.dim_head
+        dh = self.dim_head
+        h = self.qkv.weight.shape[0] // (3 * dh)  # this rank's heads
+        if self.tp is not None:
+            x = self.tp.enter(x)
         # (B, T, 3, H, Dh) -> three (B, H, T, Dh) strided views, no copies
         q, k, v = self.qkv(x).view(b, t, 3, h, dh).permute(2, 0, 3, 1, 4).unbind(0)
         if self.rotary_dim:
@@ -96,8 +103,10 @@ class SelfAttention(nn.Module):
             q = apply_rotary(q, ang)
             k = apply_rotary(k, ang)
         out = fused_attention(q, k, v, mask=mask)
-        out = out.transpose(1, 2).reshape(b, t, h * dh)
-        return self.dropout(self.out(out))
+        out = self.out(out.transpose(1, 2).reshape(b, t, h * dh))
+        if self.tp is not None:
+            out = self.tp.reduce(out)
+        return self.dropout(out)
 
 
 class FeedForward(nn.Module):
@@ -106,10 +115,17 @@ class FeedForward(nn.Module):
         self.fc1 = nn.Linear(dim, dim * mult, device=device)
         self.fc2 = nn.Linear(dim * mult, dim, device=device)
         self.dropout = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
+        #: tensor parallelism (parallel.sharding): fc1 holds rows (and their
+        #: bias), fc2 the matching columns; fc2's bias is added once, after
+        #: the sum over the ranks
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # erf-form gelu through the rational of ops.fast_gelu (1.3e-6 absolute)
-        return self.fc2(self.dropout(gelu_fast(self.fc1(x))))
+        if self.tp is None:
+            return self.fc2(self.dropout(gelu_fast(self.fc1(x))))
+        h = self.dropout(gelu_fast(self.fc1(self.tp.enter(x))))
+        return self.tp.reduce(F.linear(h, self.fc2.weight)) + self.fc2.bias
 
 
 class EncoderBlock(nn.Module):

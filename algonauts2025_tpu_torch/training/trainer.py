@@ -1,6 +1,6 @@
 """The training engine: steps, SWA, early stopping, checkpoints.
 
-The port of algonauts2025_tpu/training/trainer.py on one device:
+The port of algonauts2025_tpu/training/trainer.py:
 
 - a train step (forward with the shared-trunk InfoNCE head, loss,
   backward, hand-written Adam step) with the modality-dropout draws taken
@@ -13,9 +13,16 @@ The port of algonauts2025_tpu/training/trainer.py on one device:
   with optimizer and SWA state for an exact resume;
 - with ``profile_dir``, a ``torch.profiler`` trace of the first train epoch
   (one range per step, ``utils.profiling``);
-- ``release()`` hands the card's memory back after a run.
-
-Data and tensor parallelism are not ported yet (ROADMAP, queue 1 item 10).
+- ``release()`` hands the card's memory back after a run;
+- with ``mesh`` (``parallel.get_mesh``, one process a device), data and
+  tensor parallelism: each data rank runs its rows of the global batch
+  and the predictions and InfoNCE latents are gathered before the loss
+  (the losses and the metrics couple the rows), the gradients are
+  averaged over "data", and the weights that ``parallel.sharding`` names
+  split over "model" with the Megatron collectives.  A step, a loss and a
+  metric equal those of one device.  Checkpoints and the SWA mean hold
+  the full tensors, and rank 0 writes the files, so a checkpoint loads on
+  any mesh.
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ import numpy as np
 import torch
 
 from ..data.dataset import SegmentData, to_device
+from ..parallel.collectives import Parallel
+from ..parallel.mesh import shard_batch
+from ..parallel.sharding import apply_tensor_parallel, shard_tensor, state_shardings, unshard_tensor
 from ..runtime import default_device
 from ..utils.profiling import step_range, trace
 from .metrics import Metric, MetricNeverUpdated
@@ -75,12 +85,20 @@ def _to_host(tree: tp.Any) -> tp.Any:
     return tree
 
 
+#: optimizers whose update reduces over a whole parameter (a norm, a
+#: factored moment): a rank's slice would give another update
+_WHOLE_PARAM_RULES = ("Adafactor", "LAMB")
+
+
 class BrainTrainer:
-    """Trainer for FmriEncoder-style models on one device.
+    """Trainer for FmriEncoder-style models.
 
     ``model(batch, training=...)`` returns (B, O, T') predictions;
     ``model.forward_with_contrastive`` also returns a dict of InfoNCE losses.
-    ``device=None`` means the CUDA card (see ``runtime.default_device``).
+    ``device=None`` means the CUDA card (see ``runtime.default_device``):
+    this process's device.  ``mesh`` is a ``("data", "model")`` DeviceMesh
+    over the launch's processes (``parallel.get_mesh``); every process
+    calls every method with the same global batches.
     """
 
     def __init__(
@@ -91,6 +109,7 @@ class BrainTrainer:
         metrics: tp.Mapping[str, Metric],
         config: TrainerConfig,
         device: str | torch.device | None = None,
+        mesh: tp.Any | None = None,
     ) -> None:
         self.model = model
         self.loss_fn = loss_fn
@@ -98,6 +117,10 @@ class BrainTrainer:
         self.metrics = dict(metrics)
         self.config = config
         self.device = default_device(device)
+        self.mesh = mesh
+        self._parallel: Parallel | None = None
+        #: parameter name -> the dim split over "model" (None: replicated)
+        self._specs: dict[str, int | None] = {}
         self.optimizer = None
         self.schedule: tp.Callable[[int], float] | None = None
         self.step = 0
@@ -120,7 +143,19 @@ class BrainTrainer:
         cfg = self.config
         generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.model.to_empty(device=self.device)
-        self.model.init_weights(generator)
+        self.model.init_weights(generator)  # the full weights, on every rank
+        if self.mesh is not None:
+            self._parallel = Parallel(self.mesh)
+            tp_group = self._parallel.tp
+            if tp_group is not None:
+                name = self.optim_config.optimizer.name
+                if name in _WHOLE_PARAM_RULES:
+                    raise ValueError(
+                        f"{name} reduces over whole parameters, which tensor parallelism "
+                        "splits; use model_parallel=1 (data parallelism) with it"
+                    )
+                self._specs = state_shardings(self.model, tp_group.size)
+                apply_tensor_parallel(self.model, self._specs, tp_group)
         swa_start_step = int(total_steps * cfg.swa_start) if cfg.swa_enabled else None
         self.optimizer, self.schedule = self.optim_config.build(
             self.model.parameters(),
@@ -131,7 +166,16 @@ class BrainTrainer:
         )
         self.step = 0
         n_params = sum(p.numel() for p in self.model.parameters())
-        logger.info("Total parameters: %d", n_params)
+        logger.info("Total parameters: %d (this rank's)", n_params)
+
+    def _local(self, data: tp.Mapping[str, tp.Any]) -> tuple[dict[str, torch.Tensor], tp.Callable | None]:
+        """This rank's rows of a global batch on the device, and the row
+        gather that restores the global batch (None where the batch is not
+        split: one device, or rows that do not divide the data axis)."""
+        if self._parallel is None:
+            return to_device(data, self.device), None
+        local, split = shard_batch(data, self.mesh, self.device)
+        return local, (self._parallel.gather_rows if split else None)
 
     def _step_generator(self) -> torch.Generator:
         """Host generator of this step's modality-dropout draws."""
@@ -146,17 +190,24 @@ class BrainTrainer:
     def train_step(
         self, data: tp.Mapping[str, torch.Tensor]
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """One optimizer step on a device batch; returns (loss, InfoNCE losses)."""
+        """One optimizer step on a global batch (on the host or the device);
+        returns (loss, InfoNCE losses)."""
         assert self.optimizer is not None, "call init_state first"
         self.model.train()
+        # the same draws on every rank: the modality-dropout mask is one per
+        # modality for the whole global batch
         generator = self._step_generator()
+        local, gather = self._local(data)
         if self._has_contrastive:
             y_pred, closses = self.model.forward_with_contrastive(
-                data, training=True, generator=generator
+                local, training=True, generator=generator, gather_rows=gather
             )
         else:
-            y_pred, closses = self.model(data, training=True, generator=generator), {}
-        loss = self.loss_fn(self._flat(y_pred), self._flat(data["fmri"]))
+            y_pred, closses = self.model(local, training=True, generator=generator), {}
+        y_true = local["fmri"]
+        if gather is not None:
+            y_pred, y_true = gather(y_pred), gather(y_true)
+        loss = self.loss_fn(self._flat(y_pred), self._flat(y_true))
         if closses:
             loss = loss + self.config.contrastive_weight * (
                 sum(closses.values()) / max(1, len(closses))
@@ -165,18 +216,23 @@ class BrainTrainer:
             group["lr"] = self.schedule(self.step)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self._parallel is not None:
+            self._parallel.reduce_grads(self.model.parameters())
         self.optimizer.step()
         self.step += 1
         return loss.detach(), {k: v.detach() for k, v in closses.items()}
 
     @torch.no_grad()
-    def eval_step(self, data: tp.Mapping[str, torch.Tensor]) -> torch.Tensor:
+    def eval_step(self, data: tp.Mapping[str, tp.Any]) -> torch.Tensor:
+        """The (B, O, T') predictions of a global batch, on every rank."""
         self.model.eval()
-        return self.model(data, training=False)
+        local, gather = self._local(data)
+        y_pred = self.model(local, training=False)
+        return y_pred if gather is None else gather(y_pred)
 
     def _swa_merge(self, host_params: Params | None = None) -> None:
         """Host-side running mean of params (exact fp32, no device memory)."""
-        params = host_params if host_params is not None else _to_host(self.model.state_dict())
+        params = host_params if host_params is not None else self._full_state_dict()
         if self._swa_params is None:
             self._swa_params = params
             self._swa_count = 1
@@ -268,7 +324,7 @@ class BrainTrainer:
 
         # adopt the SWA weights at the end of training
         if cfg.swa_enabled and self._swa_count > 0:
-            self.model.load_state_dict(self._swa_params)
+            self._load_full_params(self._swa_params)
             if last_host_state is not None:
                 last_host_state = {**last_host_state, "params": self._swa_params}
             self.save_checkpoint("last", epoch=n_epochs - 1, host_state=last_host_state)
@@ -283,7 +339,7 @@ class BrainTrainer:
             if cfg.fast_dev_run and i >= 1:
                 break
             with step_range(i) if traced else contextlib.nullcontext():
-                loss, _aux = self.train_step(to_device(batch.data, self.device))
+                loss, _aux = self.train_step(batch.data)
             losses.append(loss)
             if cfg.log_every_n_steps and (i + 1) % cfg.log_every_n_steps == 0:
                 logger.info("epoch %d step %d: train/loss=%.5f", epoch, i, float(loss))
@@ -314,7 +370,7 @@ class BrainTrainer:
         losses = []
         for batch in loader:
             data = to_device(batch.data, self.device)
-            y_pred = self.eval_step(data)
+            y_pred = self.eval_step(data)  # the global batch's, on every rank
             y_true = data["fmri"]
             yp, yt = self._flat(y_pred), self._flat(y_true)
             losses.append(self.loss_fn(yp, yt))
@@ -359,7 +415,7 @@ class BrainTrainer:
     ) -> tp.Iterator[tuple[np.ndarray, SegmentData]]:
         assert self.optimizer is not None, "call init_state first"
         for batch in loader:
-            y_pred = self.eval_step(to_device(batch.data, self.device))
+            y_pred = self.eval_step(batch.data)
             yield y_pred.cpu().numpy(), batch
 
     # -- checkpointing ----------------------------------------------------
@@ -368,23 +424,86 @@ class BrainTrainer:
             return None
         return Path(self.config.folder) / f"{name}.ckpt"
 
+    def _full(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        """The full tensor of a parameter (or of a state shaped like it)
+        from every model rank's part; a collective under tensor parallelism."""
+        dim = self._specs.get(name)
+        if dim is None:
+            return local
+        group = self._parallel.model_group
+        parts = [torch.empty_like(local) for _ in range(self._parallel.n_model)]
+        torch.distributed.all_gather(parts, local.contiguous(), group=group)
+        return unshard_tensor(name, parts, dim)
+
+    def _own(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a full parameter (or state shaped like it)."""
+        dim = self._specs.get(name)
+        if dim is None:
+            return full
+        tp_group = self._parallel.tp
+        return shard_tensor(name, full, dim, tp_group.rank, tp_group.size)
+
+    def _full_state_dict(self) -> Params:
+        """A host copy of the model's full state dict (every rank gets it)."""
+        return _to_host({k: self._full(k, v) for k, v in self.model.state_dict().items()})
+
+    def _load_full_params(self, full: tp.Mapping[str, torch.Tensor], strict: bool = True) -> None:
+        """Load a full state dict (a checkpoint's, the SWA mean) into this
+        rank's parts."""
+        self.model.load_state_dict({k: self._own(k, v) for k, v in full.items()}, strict=strict)
+
+    def _full_shape(self, name: str, local: torch.Tensor) -> tuple[int, ...]:
+        shape = list(local.shape)
+        dim = self._specs.get(name)
+        if dim is not None:
+            shape[dim] *= self._parallel.n_model
+        return tuple(shape)
+
+    def _optimizer_states(self, opt_state: dict[str, tp.Any], to_full: bool) -> dict[str, tp.Any]:
+        """An optimizer state dict whose per-parameter tensors of the split
+        parameters are made full (``to_full``) or cut to this rank's part."""
+        if not self._specs:
+            return opt_state
+        params = dict(self.model.named_parameters())
+        names = {id(p): n for n, p in params.items()}
+        order = [names[id(p)] for group in self.optimizer.param_groups for p in group["params"]]
+        states = {}
+        for index, state in opt_state["state"].items():
+            name = order[int(index)]
+            local = params[name]
+            shape = tuple(local.shape) if to_full else self._full_shape(name, local)
+
+            def convert(v):
+                if not isinstance(v, torch.Tensor) or tuple(v.shape) != shape:
+                    return v
+                return self._full(name, v) if to_full else self._own(name, v)
+
+            states[index] = {k: convert(v) for k, v in state.items()}
+        return {**opt_state, "state": states}
+
     def _host_state(self) -> dict[str, tp.Any]:
+        """Step, full params and full optimizer state on the host; a
+        collective under tensor parallelism (every rank calls it)."""
         return {
             "step": self.step,
-            "params": _to_host(self.model.state_dict()),
-            "opt_state": _to_host(self.optimizer.state_dict()),
+            "params": self._full_state_dict(),
+            "opt_state": _to_host(self._optimizer_states(self.optimizer.state_dict(), True)),
         }
 
     def save_checkpoint(
         self, name: str, epoch: int | None = None, host_state: dict | None = None
     ) -> None:
         """``host_state``: an already-fetched host copy of the state, so an
-        improving epoch pays one device-to-host copy for "best" and "last"."""
+        improving epoch pays one device-to-host copy for "best" and "last".
+        Under a mesh every rank gathers the state and rank 0 writes it."""
         path = self._ckpt_path(name)
         if path is None or self.optimizer is None:
             return
+        state = host_state if host_state is not None else self._host_state()
+        if self._parallel is not None and not self._parallel.writer:
+            return
         payload = {
-            "state": host_state if host_state is not None else self._host_state(),
+            "state": state,
             "meta": {
                 "epoch": epoch if epoch is not None else -1,
                 "swa_count": self._swa_count,
@@ -416,11 +535,11 @@ class BrainTrainer:
             return 0
         new_params = raw["state"]["params"]
         if params_only:
-            current = self.model.state_dict()
+            current = {k: self._full_shape(k, v) for k, v in self.model.state_dict().items()}
             missing = set(current) - set(new_params)
             mismatched = {
                 k for k in set(current) & set(new_params)
-                if tuple(new_params[k].shape) != tuple(current[k].shape)
+                if tuple(new_params[k].shape) != current[k]
             }
             if (missing or mismatched) and strict:
                 raise ValueError(
@@ -433,10 +552,10 @@ class BrainTrainer:
                 k: v for k, v in new_params.items()
                 if k in current and k not in mismatched
             }
-            self.model.load_state_dict(adopt, strict=False)
+            self._load_full_params(adopt, strict=False)
             return 0
-        self.model.load_state_dict(new_params)
-        self.optimizer.load_state_dict(raw["state"]["opt_state"])
+        self._load_full_params(new_params)
+        self.optimizer.load_state_dict(self._optimizer_states(raw["state"]["opt_state"], False))
         self.step = int(raw["state"]["step"])
         self._swa_params = raw.get("swa_params")
         meta = raw["meta"]

@@ -100,6 +100,26 @@ Phases (any failure exits non-zero):
      int8, the flagship trunk with InfoNCE on video) over a synthetic study
      with video: the video kernels launch as reckoned, rows 1 and 2 launch.
 
+10. The model soup, the profiled Experiment, ``save_attn_out``, the
+    other optimizers and FmriMlp (``soup_path`` and the functions after it).
+11. The parallel strategies (``parallel_path``): (a) ``init_distributed``
+    over NCCL (a localhost rendezvous, world 1), ``get_mesh(n_devices=1)``
+    and phase 4's trainer on it: its first 3 losses are phase 4's; (b) two
+    processes on the one card joined by gloo (which takes CUDA tensors):
+    dp2 and dp1 x tp2 on the flagship trunk, their losses held to (a)'s;
+    (c) phase 5's ViT-G with each window's 8192 tokens over 8 shards
+    (ring attention) on phase 5's first window batch, against phase 5's
+    features, rows 6 and 7 launching per shard and row 4 never; (d) phase
+    6's Llama-3.2-3B in 4 pipeline stages, one (8, 1024) batch in 2
+    microbatches, against the scanned forward, row 2 launching 28 times a
+    microbatch.  The card is one H100: (c) and (d) call the backbone API
+    over virtual shards and stages of cuda:0 (``LocalMesh``), since the
+    features' options ask for as many cards.
+
+``python3 chip_smoke.py --cards 4`` runs phase 11's parts over 4 cards of
+one host instead (``cards_path``): the trainer in 4 NCCL processes, the
+ring over 4 cards, the pipeline in 4 stages, one a card.
+
 Before each main path (phases 4 to 9) every kernel's launch counter is
 zeroed, and it is read just after.  The line before the last is the JSON
 ``kernels`` record; the last line is ``{"ok": true, "device": {...}}``.
@@ -113,6 +133,7 @@ import gc
 import io
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -126,6 +147,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from algonauts2025_tpu_torch.config import ConfDict
 from algonauts2025_tpu_torch.core.events import Sound
@@ -163,6 +185,7 @@ from algonauts2025_tpu_torch.ops import flash_attention as flash
 from algonauts2025_tpu_torch.ops import quant
 from algonauts2025_tpu_torch.ops.layer_agg import aggregate_layers
 from algonauts2025_tpu_torch.ops.resample import resample_poly
+from algonauts2025_tpu_torch.parallel import get_mesh, init_distributed, local_mesh, pipelined_llama_states
 from algonauts2025_tpu_torch.scripts import bench_attn
 from algonauts2025_tpu_torch.utils.profiling import step_summary
 from algonauts2025_tpu_torch.training import (
@@ -1110,7 +1133,8 @@ def video_path(n_windows: int = 10, window_batch: int = 4) -> dict:
         f"last layer {rel[:, -1].max():.3e}")
     if not (cos.min() >= 0.9999 and rel.max() <= 1e-2):
         raise SystemExit("the video features through the kernels disagree with the plain versions")
-    return {"launches": launches, "batch_s": statistics.mean(batch_s[1:]), "peak_gb": peak_gb}
+    return {"launches": launches, "batch_s": statistics.mean(batch_s[1:]), "peak_gb": peak_gb,
+            "windows": windows, "window_batch": window_batch, "first_batch": got}
 
 
 def transcript(n_words: int, context_cap: int, seed: int) -> list[tuple[str, str]]:
@@ -1133,12 +1157,13 @@ def pooled_agreement(got: np.ndarray, ref: np.ndarray) -> tuple[float, np.ndarra
     return cos.min(), (np.linalg.norm(got - ref, axis=-1) / norms).max(axis=0)
 
 
-def compare_pooled(got: np.ndarray, ref: np.ndarray, what: str, dtype: torch.dtype) -> bool:
+def compare_pooled(got: np.ndarray, ref: np.ndarray, what: str, dtype: torch.dtype,
+                   pair: str = "kernel vs plain") -> bool:
     """Whether the features through the kernel keep TEXT_LIMITS[dtype]
-    against those through the plain attention."""
+    against those through the plain attention (or another ``pair``)."""
     cos, rel = pooled_agreement(got, ref)
     cos_tol, rel_tol = TEXT_LIMITS[dtype]
-    log(f"text features {str(dtype)[6:]}, kernel vs plain on the card ({what}): min cosine "
+    log(f"text features {str(dtype)[6:]}, {pair} on the card ({what}): min cosine "
         f"{cos:.7f} (tol {cos_tol}), max rel L2 {rel.max():.3e} (tol {rel_tol:.0e}) at layer "
         f"{int(rel.argmax())}; by layer {' '.join(f'{r:.1e}' for r in rel)}")
     return cos >= cos_tol and rel.max() <= rel_tol
@@ -1413,7 +1438,7 @@ OPTIM = {
 
 
 def make_trainer(feature_dims, n_outputs, device=None, metrics=(), optim=OPTIM, loss="MSELoss",
-                 **model_kw):
+                 mesh=None, **model_kw):
     cfg = FmriEncoderConfig(
         n_subjects=4, modality_dropout=0.3, remat=True, contrastive_enabled=True,
         contrastive_modalities=["video"], **model_kw,
@@ -1427,6 +1452,7 @@ def make_trainer(feature_dims, n_outputs, device=None, metrics=(), optim=OPTIM, 
         config=TrainerConfig(n_epochs=1, folder=None, save_checkpoints=False, seed=SEED,
                              contrastive_weight=0.1),
         device=device,
+        mesh=mesh,
     )
 
 
@@ -2261,10 +2287,349 @@ def check_fmri_mlp_against_cpu() -> None:
         raise SystemExit("FmriMlp on the card disagrees with the CPU")
 
 
+# phase 11: the parallel strategies on the one card.  (a)'s limit on the
+# losses of phase 4's seed and batches through a ("data", "model") mesh of
+# one device: nothing is split, so they must be phase 4's (relative; the
+# first reading on an H100 was 0, bit-equal); (b)'s two ranks on cuda:0
+# (and --cards' N ranks, one a card) split the batch (dp) or the weights
+# (tp) and sum in another order: their losses within this limit of one
+# device's, ~10x the first readings (dp2 0, bit-equal; tp2, dp4 and dp2 x
+# tp2 over 4 cards 1.1e-7)
+PARALLEL_STEPS = 3
+DP1_RTOL = 1e-6
+TWO_RANK_RTOL = 1e-6
+#: (c) and (d): shards and stages, all on cuda:0
+SP_SHARDS = 8
+PP_STAGES = 4
+PP_MICROBATCHES = 2
+#: (c)'s limits of the ring's token-pooled features against phase 5's
+#: through row 4 (min cosine, max relative L2 a window and layer): phase
+#: 5's limits of kernels vs plain, where fp32 ring vs bf16 flash may move
+#: int8 rounding ties (ROADMAP section 3); first reading on an H100:
+#: 0.9999944, 3.3e-3 at layer 40 (phase 5's kernels vs plain: 3.4e-3)
+SP_LIMITS = (0.9999, 1e-2)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_trainer_steps(mesh, n_steps: int = PARALLEL_STEPS, **model_kw) -> dict:
+    """Phase 4's flagship trainer over ``mesh``, from phase 4's seed and its
+    first ``n_steps`` batches: the losses, the median step, the peak."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    train = [make_batch(FLAGSHIP_DIMS, 1000, 16, 298, gen) for _ in range(n_steps)]
+    trainer = make_trainer(FLAGSHIP_DIMS, 1000, mesh=mesh, **model_kw)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.init_state(train[0], total_steps=100)
+    losses, step_s = [], []
+    for batch in train:
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batch.data)[0].item())
+        step_s.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    trainer.release()
+    return {"losses": losses, "step_s": statistics.median(step_s[1:]), "peak_gb": peak_gb,
+            "n_params": n_params}
+
+
+def dp_world1_path(run: dict) -> dict:
+    """(a) ``init_distributed`` over NCCL with a localhost rendezvous, a
+    mesh of the one device, and phase 4's trainer on it."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                      RANK="0", LOCAL_RANK="0")
+    t0 = time.perf_counter()
+    init_distributed()
+    try:
+        mesh = get_mesh(n_devices=1)
+        if dist.get_backend() != "nccl":
+            raise SystemExit(f"init_distributed took {dist.get_backend()}, not NCCL, on the card")
+        reset_counts()
+        out = parallel_trainer_steps(mesh)
+        launches = launch_counts()["attention"]
+    finally:
+        dist.destroy_process_group()
+        for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+            os.environ.pop(key)
+    want = run["losses"][:PARALLEL_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], want))
+    depth = FmriEncoderConfig().depth
+    log(f"(a) dp over NCCL, world 1 ({mesh}): losses {out['losses']} against phase 4's {want}, "
+        f"max rel {rel:.3e} (tol {DP1_RTOL:.0e}); median step {out['step_s']:.4f} s (phase 4: "
+        f"{run['step_s']:.4f} s); peak {out['peak_gb']:.2f} GB (phase 4's train peak "
+        f"{run['train_peak_gb']:.2f} GB); row-1 launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not rel <= DP1_RTOL or launches != 2 * depth * PARALLEL_STEPS:
+        raise SystemExit("the flagship trainer over a one-device mesh disagrees with phase 4")
+    return {**out, "seconds": time.perf_counter() - t0}
+
+
+def rank_worker(rank: int, world: int, port: int, model_parallel: int, cards: bool,
+                results) -> None:
+    """One rank of (b) or of ``--cards``: on its own card over NCCL, joined
+    from torchrun's environment variables by ``init_distributed``
+    (``cards``), or on cuda:0 over gloo with CUDA tensors."""
+    try:
+        if cards:
+            os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                              WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank))
+            init_distributed()
+        else:
+            dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                    world_size=world)
+        try:
+            reset_counts()
+            out = parallel_trainer_steps(get_mesh(world, model_parallel))
+            results.put((rank, {**out, "attention": launch_counts()["attention"],
+                                "device": torch.cuda.current_device()}))
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    except BaseException as err:  # the parent fails the phase with it
+        results.put((rank, f"{type(err).__name__}: {err}"))
+        raise
+
+
+def ranks_path(ref: dict, world: int, cards: bool, part: str) -> dict:
+    """Phase 4's trainer in ``world`` processes: data parallelism over all
+    of them (dp{world}) and dp{world/2} x tp2, the losses held to ``ref``'s.
+    (b): two ranks on the one card over gloo, which takes CUDA tensors for
+    the all-reduce, all-gather and broadcast of DP and TP (checked on an
+    H100: PERF.md); ``--cards``: one rank a card over NCCL."""
+    import multiprocessing
+    import queue
+
+    # hand the parent's cached blocks back, for the ranks' trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    ctx = multiprocessing.get_context("spawn")
+    where = "one a card over NCCL" if cards else "on cuda:0 over gloo"
+    for label, model_parallel in ((f"dp{world}", 1), (f"dp{world // 2} x tp2", 2)):
+        t0 = time.perf_counter()
+        results = ctx.Queue()
+        port = free_port()
+        procs = [ctx.Process(target=rank_worker,
+                             args=(rank, world, port, model_parallel, cards, results))
+                 for rank in range(world)]
+        got = {}
+        try:
+            for proc in procs:
+                proc.start()
+            while len(got) < world:
+                try:
+                    rank, value = results.get(timeout=600)
+                except queue.Empty:
+                    raise SystemExit(f"{part} {label}: a rank gave no result in 600 s") from None
+                if isinstance(value, str):
+                    raise SystemExit(f"{part} {label}: rank {rank} failed: {value}")
+                got[rank] = value
+            for proc in procs:
+                proc.join(timeout=60)
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        want = ref["losses"]
+        rel = max(abs(a - b) / abs(b) for r in got.values() for a, b in zip(r["losses"], want))
+        seconds = time.perf_counter() - t0
+        depth = FmriEncoderConfig().depth
+        ranks = [got[r] for r in range(world)]
+        log(f"{part} {label}, {world} ranks {where}: losses {[r['losses'] for r in ranks]} "
+            f"against {ref['what']} {want}, max rel {rel:.3e} (tol {TWO_RANK_RTOL:.0e}); median "
+            f"step {[round(r['step_s'], 4) for r in ranks]} s; peaks "
+            f"{[round(r['peak_gb'], 2) for r in ranks]} GB; params a rank {ranks[0]['n_params']}; "
+            f"cards {[r['device'] for r in ranks]}; row-1 launches "
+            f"{[r['attention'] for r in ranks]}; {seconds:.1f} s")
+        if not rel <= TWO_RANK_RTOL or any(r["attention"] != 2 * depth * PARALLEL_STEPS
+                                           for r in ranks):
+            raise SystemExit(f"{part} {label} disagrees with one device")
+        out[label] = {"rel": rel, "seconds": seconds}
+    return out
+
+
+@torch.no_grad()
+def sequence_parallel_path(video: dict | None, mesh, part: str = "(c)") -> dict:
+    """(c) Phase 5's ViT-G (the same seed and calibration) with its 8192
+    tokens a window split over the shards of ``mesh`` (ring attention,
+    sequence_parallel_axis), on phase 5's first window batch, against
+    phase 5's features (``video``, or, without phase 5, the same model and
+    windows through row 4 on cuda:0)."""
+    cfg = dataclasses.replace(VJEPA2_VITG, quantize=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    t0 = time.perf_counter()
+    model = _calibrated_static_model(quantized_backbone(cfg, gen), cfg.frames_per_clip,
+                                     cfg.crop_size)
+    if video is None:
+        rng = np.random.default_rng(SEED + 6)
+        windows = [rng.integers(0, 256, (cfg.frames_per_clip, 288, 512, 3), dtype=np.uint8)
+                   for _ in range(4)]
+        one = TorchVideoBackbone(model, n_frames=cfg.frames_per_clip, crop_size=cfg.crop_size)
+        t1 = time.perf_counter()
+        first = one.encode_windows(np.stack(windows)).astype(np.float64)
+        video = {"windows": windows, "window_batch": 4, "first_batch": first,
+                 "batch_s": time.perf_counter() - t1, "what": "one card, a first call"}
+    backbone = TorchVideoBackbone(model, n_frames=cfg.frames_per_clip, crop_size=cfg.crop_size,
+                                  mesh=mesh, sequence_parallel=True)
+    batch = np.stack(video["windows"][: video["window_batch"]])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t1 = time.perf_counter()
+    got = backbone.encode_windows(batch).astype(np.float64)  # (B, L+1, D)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t1
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ref = video["first_batch"].astype(np.float64)
+    norms = np.linalg.norm(ref, axis=-1)
+    cos = (got * ref).sum(-1) / (np.linalg.norm(got, axis=-1) * norms)
+    rel = np.linalg.norm(got - ref, axis=-1) / norms
+    per_shard = cfg.num_layers * mesh.size
+    expected = {**{key: 0 for key in launches}, "w8a8": 4 * per_shard, "int8_mlp": per_shard}
+    log(f"{part} ViT-G over {mesh.size} shards on {sorted({str(d) for d in mesh.devices})} "
+        f"({batch.shape[0]} windows, 8192 tokens each, {8192 // mesh.size} a shard): "
+        f"{batch_s:.3f} s ({video.get('what', 'phase 5')}: {video['batch_s']:.4f} s a batch), peak "
+        f"{peak_gb:.2f} GB on cuda:0; against phase 5's features through row 4: min cosine "
+        f"{cos.min():.7f} (tol {SP_LIMITS[0]}), max rel L2 {rel.max():.3e} (tol "
+        f"{SP_LIMITS[1]:.0e}) at layer {int(rel.max(axis=0).argmax())}; launches {launches} "
+        f"(expected {expected}); {time.perf_counter() - t0:.1f} s")
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise SystemExit(f"{part} features {got.shape} (want {ref.shape}) or non-finite values")
+    if launches != expected:
+        raise SystemExit(f"{part} the sequence-parallel path did not launch the kernels as reckoned")
+    if not (cos.min() >= SP_LIMITS[0] and rel.max() <= SP_LIMITS[1]):
+        raise SystemExit(f"{part} the ring's features disagree with phase 5's")
+    return {"batch_s": batch_s, "peak_gb": peak_gb, "seconds": time.perf_counter() - t0}
+
+
+@torch.no_grad()
+def pipeline_path(mesh, part: str = "(d)") -> dict:
+    """(d) Phase 6's Llama-3.2-3B (the same seed) with its 28 layers in the
+    stages of ``mesh`` (each stage's layers on its device, as
+    ``TorchTextBackbone(pipeline_mesh=)`` places them), one of phase 6's
+    (8, 1024) batches in PP_MICROBATCHES microbatches through
+    ``pipelined_llama_states``, held to the scanned forward on cuda:0 by
+    phase 6's measure."""
+    cfg = LLAMA_3P2_3B
+    gc.collect()
+    t0 = time.perf_counter()
+
+    def seeded():
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        return LlamaBackbone(cfg, device="cuda").init_random(gen)
+
+    model = seeded()
+    backbone = TorchTextBackbone(model, HashTokenizer(cfg.vocab_size), pad_id=0,
+                                 pipeline_mesh=mesh)
+    # the scanned forward needs every layer on cuda:0: over real cards, a
+    # second copy of the same seeded weights
+    scanned = model if set(mesh.devices) == {model.embed_tokens.weight.device} else seeded()
+    batch = transcript(1280, 1024, SEED + 11)[1024 : 1024 + 8]
+    ids, mask = backbone.encode_pretokenized(backbone.chain_tokenize([c for _, c in batch]), 1024)
+    ids_t = torch.from_numpy(ids).to("cuda", torch.long)
+    mask_t = torch.from_numpy(mask).to("cuda", torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t1 = time.perf_counter()
+    got = pipelined_llama_states(cfg, model, ids_t, mask_t, mesh, n_microbatches=PP_MICROBATCHES)
+    torch.cuda.synchronize()
+    pp_ms = (time.perf_counter() - t1) * 1e3
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = scanned(ids_t, mask_t)
+    # phase 6's measure on pooled word vectors: each row's last len(word) tokens
+    spans = torch.tensor([max(1, min(len(w), int(n))) for (w, _), n in zip(batch, mask.sum(-1))],
+                         device="cuda")
+    n_valid = mask_t.sum(-1)
+    pos = torch.arange(ids.shape[1], device="cuda")[None]
+    sel = (pos >= (n_valid - spans)[:, None]) & (pos < n_valid[:, None])
+    weights = (sel / sel.sum(-1, keepdim=True)).float()
+
+    def pooled(states):
+        return torch.einsum("lbtd,bt->bld", states, weights).cpu().numpy()
+
+    expected = {**{key: 0 for key in launches}, "flash_masked": cfg.num_layers * PP_MICROBATCHES}
+    log(f"{part} Llama-3.2-3B in {mesh.size} stages on "
+        f"{[str(d) for d in mesh.devices]}, {PP_MICROBATCHES} microbatches of "
+        f"{ids.shape[0] // PP_MICROBATCHES}: {pp_ms:.2f} ms (phase 6: an (8, 1024) forward), "
+        f"peak {peak_gb:.2f} GB on cuda:0; states {tuple(got.shape)}; launches {launches} "
+        f"(expected {expected})")
+    if tuple(got.shape) != tuple(want.shape) or not torch.isfinite(got).all():
+        raise SystemExit(f"{part} states {tuple(got.shape)} or non-finite values")
+    if launches != expected:
+        raise SystemExit(f"{part} the pipelined Llama did not launch row 2 as reckoned")
+    if not compare_pooled(pooled(got), pooled(want), f"{part}, (8, 1024)", cfg.dtype,
+                          pair="pipelined vs scanned"):
+        raise SystemExit(f"{part} the pipelined Llama disagrees with the scanned forward")
+    return {"ms": pp_ms, "peak_gb": peak_gb, "seconds": time.perf_counter() - t0}
+
+
+def parallel_path(run: dict, video: dict, name_and_limit: str) -> None:
+    """Phase 11: (a) data parallelism over NCCL at world 1, (b) two ranks
+    on the card over gloo, (c) sequence parallelism and (d) pipeline
+    parallelism.  The card is one H100, so (c) and (d) call the backbone
+    API over a LocalMesh of virtual shards and stages of cuda:0: the
+    features' options (``VJEPA2(sequence_parallel=)``,
+    ``LLAMA3p2(pipeline_stages=)``) ask for that many cards and raise."""
+    t11 = time.perf_counter()
+    dp1 = dp_world1_path(run)
+    log(f"(a) {dp1['seconds']:.1f} s, peak {dp1['peak_gb']:.2f} GB on {name_and_limit}")
+    two = ranks_path({**dp1, "what": "(a)'s"}, 2, cards=False, part="(b)")
+    log(f"(b) dp2 {two['dp2']['seconds']:.1f} s, dp1 x tp2 {two['dp1 x tp2']['seconds']:.1f} s "
+        f"on {name_and_limit}")
+    sp = sequence_parallel_path(video, local_mesh(SP_SHARDS, "seq", "cuda:0"))
+    log(f"(c) {sp['seconds']:.1f} s, peak {sp['peak_gb']:.2f} GB on {name_and_limit}")
+    pp = pipeline_path(local_mesh(PP_STAGES, "stage", "cuda:0"))
+    log(f"(d) {pp['seconds']:.1f} s, peak {pp['peak_gb']:.2f} GB on {name_and_limit}")
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+
+
+def cards_path(n: int, name_and_limit: str) -> None:
+    """``--cards N``: phase 11 over N cards of one host instead of one:
+    phase 4's trainer as dpN and dp(N/2) x tp2 in N processes over NCCL
+    (one a card, joined through ``init_distributed``), held to its
+    one-card losses; phase 5's ViT-G ring over N cards (a copy of the
+    weights on each) and phase 6's Llama in N stages, one a card, each
+    held to one card as (c) and (d) are.  N divides the ViT-G's 32
+    tubelets and the Llama's 28 layers (2 or 4)."""
+    t0 = time.perf_counter()
+    ref = parallel_trainer_steps(None)
+    log(f"one card: losses {ref['losses']}, median step {ref['step_s']:.4f} s, peak "
+        f"{ref['peak_gb']:.2f} GB")
+    ranks = ranks_path({**ref, "what": "one card's"}, n, cards=True, part=f"({n} cards)")
+    log(f"({n} cards) " + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in ranks.items())
+        + f" on {name_and_limit}")
+    sp = sequence_parallel_path(None, local_mesh(n, "seq"), part=f"({n} cards)")
+    log(f"({n} cards) ring {sp['seconds']:.1f} s on {name_and_limit}")
+    pp = pipeline_path(local_mesh(n, "stage"), part=f"({n} cards)")
+    log(f"({n} cards) pipeline {pp['seconds']:.1f} s on {name_and_limit}")
+    log(f"chip_smoke --cards {n}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     started = time.perf_counter()
     name_and_limit = card()
     kind = torch.cuda.get_device_name(0)
+    if sys.argv[1:2] == ["--cards"]:
+        n = int(sys.argv[2])
+        if torch.cuda.device_count() < n:
+            raise SystemExit(f"--cards {n}: {torch.cuda.device_count()} cards are visible")
+        _cuda.build_all()
+        cards_path(n, name_and_limit)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return
     peaks = peaks_for(kind)
     torch.manual_seed(SEED)
     mutants = build_kernels()
@@ -2326,6 +2691,7 @@ def main() -> None:
     check_optimizers_against_cpu()
     check_fmri_mlp_against_cpu()
     log(f"phase 10: {time.perf_counter() - t10:.1f} s")
+    parallel_path(run, video, name_and_limit)
     # each kernel's launches from the path that runs it
     launches = {**video["launches"], "attention": run["attention"],
                 "flash_masked": text["launches"]["flash_masked"],

@@ -320,18 +320,24 @@ def test_experiment_test_metrics_with_real_targets(study, tmp_path, monkeypatch)
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"n_devices": 2}, "item 6"),
-    ({"model_parallel": 2}, "item 6"),
+    ({"n_devices": 2}, "torchrun --nproc-per-node 2"),
+    ({"model_parallel": 2}, "not divisible by model_parallel=2"),
 ])
 def test_unported_options_raise(study, tmp_path, override, match):
+    """A mesh the launch cannot give raises before anything trains: two
+    devices in a one-process launch (the error names the torchrun command
+    that gives them), and a model axis wider than the devices (the JAX
+    ``get_mesh`` raises so too)."""
     root, path = study
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         Experiment(**dict(_config(tmp_path, path, "unported"), **override)).run()
 
 
-def test_unported_features_raise(study, tmp_path):
+def test_unported_features_raise(study, tmp_path, monkeypatch):
     """The audio and video features are accepted; their device-topology
-    options that are not ported yet raise when the backbone is built."""
+    options build on the CPU (the shards or stages all on it) and give the
+    one-device backbone's features; on the card, more shards or stages
+    than visible cards raise, as the JAX ``_sp_mesh`` does."""
     root, path = study
     data = _config(tmp_path, path, "features")["data"]
     built = Data(**dict(data, audio_feature={"name": "Wav2VecBert"},
@@ -339,10 +345,27 @@ def test_unported_features_raise(study, tmp_path):
     assert isinstance(built.audio_feature, ta.Wav2VecBert)
     assert isinstance(built.video_feature, tv.VJEPA2)
     assert built.video_feature.layers == data["layers"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tv.VJEPA2(model_name="tiny-random", device="cpu", sequence_parallel=2).backbone
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tt.LLAMA3p2(model_name="tiny-random", device="cpu", pipeline_stages=2).backbone
+
+    video = tv.VJEPA2(model_name="tiny-random", device="cpu", sequence_parallel=2).backbone
+    plain = tv.VJEPA2(model_name="tiny-random", device="cpu").backbone
+    assert video.sequence_parallel and video.mesh.shape == {"seq": 2}
+    windows = np.random.default_rng(0).integers(0, 255, (2, 8, 32, 32, 3), dtype=np.uint8)
+    # the tiny default is static int8 (the tolerance of the JAX quantized SP test)
+    np.testing.assert_allclose(video.encode_windows(windows), plain.encode_windows(windows),
+                               atol=5e-5)
+    text = tt.LLAMA3p2(model_name="tiny-random", device="cpu", pipeline_stages=2).backbone
+    one = tt.LLAMA3p2(model_name="tiny-random", device="cpu").backbone
+    assert text.pipeline_mesh.shape == {"stage": 2}
+    ids, mask = one.encode(["the cat sat", "on the mat today"])
+    np.testing.assert_allclose(text.hidden_states(ids, mask), one.hidden_states(ids, mask),
+                               rtol=0, atol=1e-5)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="only 1 devices are visible"):
+        tv._sp_mesh(2, torch.device("cuda"))
+    with pytest.raises(ValueError, match="only 1 devices are visible"):
+        tt._pp_mesh(2, torch.device("cuda"))
 
 
 def test_no_card_means_no_run(study, tmp_path, monkeypatch):
@@ -362,15 +385,15 @@ def test_named_model_without_weights_raises(monkeypatch):
     back to random weights; the loader reads the local HF cache only."""
     seen = {}
 
-    def missing(model_name, device=None):
-        seen["args"] = (model_name, device)
+    def missing(model_name, device=None, pipeline_stages=0):
+        seen["args"] = (model_name, device, pipeline_stages)
         raise OSError("not in the local cache")
 
     monkeypatch.setattr(tt, "load_hf_text_backbone", missing)
     feat = tt.LLAMA3p2(model_name="meta-llama/Llama-3.2-3B", device="cpu")
     with pytest.raises(RuntimeError, match="refusing to substitute random weights"):
         feat.backbone
-    assert seen["args"] == ("meta-llama/Llama-3.2-3B", torch.device("cpu"))
+    assert seen["args"] == ("meta-llama/Llama-3.2-3B", torch.device("cpu"), 0)
     assert feat._backbone is None
 
 

@@ -224,15 +224,26 @@ def test_killed_element_resumes_from_last_ckpt(study, tmp_path):
 
 
 def test_run_config_is_single_process(monkeypatch, tmp_path):
-    from algonauts2025_tpu_torch.grids import run_config
+    """Without a launcher run_config joins no process group (one process,
+    one device); under a launcher's environment it joins the group first,
+    and a WORLD_SIZE without a RANK raises before any rendezvous (as the
+    JAX init_distributed refuses JAX_NUM_PROCESSES without JAX_PROCESS_ID)."""
+    import torch.distributed as dist
 
+    from algonauts2025_tpu_torch.grids import run_config
+    from algonauts2025_tpu_torch.parallel import init_distributed
+
+    for var in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    init_distributed(device="cpu")
+    assert not dist.is_initialized()
+    config = tmp_path / "task.json"
+    config.write_text(json.dumps({"accelerator": "cpu"}))
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        run_config.main(str(tmp_path / "unused.json"))
-    monkeypatch.setenv("WORLD_SIZE", "1")
-    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        run_config.main(str(tmp_path / "unused.json"))
+    with pytest.raises(RuntimeError, match="RANK is not"):
+        run_config.main(str(config))
+    assert not dist.is_initialized()
     with pytest.raises(SystemExit, match="usage"):
         run_config.cli([])
 

@@ -189,6 +189,24 @@ def test_hash_tokenizer_matches_jax():
 
 
 def test_pipeline_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """A pipeline mesh whose stage count does not divide the layers is
+    refused when the backbone is built (as the JAX JaxTextBackbone refuses
+    it); one that divides them places each stage's layers on its device."""
+    from algonauts2025_tpu_torch.parallel import LocalMesh
+
+    with pytest.raises(ValueError, match="1 layers not divisible by 2 stages"):
         tt.TorchTextBackbone(tl.LlamaBackbone(tl.LlamaConfig(num_layers=1), device="meta"),
-                             tt.HashTokenizer(8), 0, device="cpu", pipeline_mesh=object())
+                             tt.HashTokenizer(8), 0, device="cpu",
+                             pipeline_mesh=LocalMesh((torch.device("cpu"),) * 2, "stage"))
+    with pytest.raises(ValueError, match="not divisible"):
+        jt.TinyTextBackbone(num_layers=3, pipeline_mesh=_jax_stages(2))
+    backbone = tt.TinyTextBackbone(num_layers=4, device="cpu",
+                                   pipeline_mesh=LocalMesh((torch.device("cpu"),) * 2, "stage"))
+    assert backbone.pipeline_mesh.shape == {"stage": 2}
+
+
+def _jax_stages(n):
+    import jax
+    from jax.sharding import Mesh
+
+    return Mesh(np.array(jax.devices()[:n]), ("stage",))

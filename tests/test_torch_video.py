@@ -122,9 +122,18 @@ def test_uncalibrated_static_backbone_is_refused():
 
 
 def test_sequence_parallel_is_not_ported():
+    """Sequence parallelism needs a mesh whose shards hold whole tubelets
+    (the JAX JaxVideoBackbone's two refusals)."""
+    from algonauts2025_tpu_torch.parallel import local_mesh
+
     bb = tvideo.TinyVideoBackbone(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         tvideo.TorchVideoBackbone(bb.model, sequence_parallel=True, device="cpu")
+    with pytest.raises(ValueError, match="requires a mesh"):
+        jvideo.JaxVideoBackbone(None, None, sequence_parallel=True)
+    with pytest.raises(ValueError, match="whole tubelets"):
+        tvideo.TorchVideoBackbone(bb.model, n_frames=8, device="cpu", sequence_parallel=True,
+                                  mesh=local_mesh(8, "seq", "cpu"))
 
 
 def test_load_video_backbone_from_hf_state_dict(rng):

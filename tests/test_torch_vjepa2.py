@@ -156,8 +156,25 @@ def test_converter_rejects_unknown_leaves():
 
 
 def test_sequence_parallel_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tv.VJEPA2Backbone(tv.VJEPA2Config(**SMALL, sequence_parallel_axis="seq"))
+    """A backbone built with ``sequence_parallel_axis`` runs only over a
+    LocalMesh of that axis name; over one it gives the one-device states."""
+    from algonauts2025_tpu_torch.parallel import local_mesh
+
+    model = tv.VJEPA2Backbone(tv.VJEPA2Config(**SMALL, dtype=torch.float32,
+                                              sequence_parallel_axis="seq"))
+    model.init_random(torch.Generator().manual_seed(0))
+    plain = tv.VJEPA2Backbone(tv.VJEPA2Config(**SMALL, dtype=torch.float32))
+    plain.load_state_dict(model.state_dict())
+    pixels = torch.randn((2, 4, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    with pytest.raises(ValueError, match="needs a LocalMesh"):
+        model(pixels)
+    with pytest.raises(ValueError, match="needs a LocalMesh"):
+        model(pixels, mesh=local_mesh(2, "data", "cpu"))
+    with torch.no_grad():
+        got = model(pixels, mesh=local_mesh(2, "seq", "cpu"))
+        want = plain(pixels)
+    # the ring against the plain attention at fp32 roundoff (the JAX SP tests')
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5)
 
 
 def test_cpu_forward_launches_no_kernel():
