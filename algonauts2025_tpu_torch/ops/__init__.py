@@ -9,7 +9,7 @@ from .attention import (
 )
 from .fast_gelu import erf_rational, gelu_fast
 from .pearson import PearsonState, compute_pearson, init_pearson_state, pearson_corr, update_pearson_state
-from .pooling import adaptive_avg_pool_matrix
+from .pooling import adaptive_avg_pool1d, adaptive_avg_pool_matrix
 
 __all__ = [
     "apply_rotary",
@@ -25,4 +25,5 @@ __all__ = [
     "pearson_corr",
     "update_pearson_state",
     "adaptive_avg_pool_matrix",
+    "adaptive_avg_pool1d",
 ]

@@ -9,8 +9,9 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
-__all__ = ["adaptive_avg_pool_matrix"]
+__all__ = ["adaptive_avg_pool_matrix", "adaptive_avg_pool1d"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -22,3 +23,13 @@ def adaptive_avg_pool_matrix(n_in: int, n_out: int) -> np.ndarray:
         hi = -(-((i + 1) * n_in) // n_out)  # ceil
         mat[lo:hi, i] = 1.0 / (hi - lo)
     return mat
+
+
+def adaptive_avg_pool1d(x, n_out: int):
+    """Pool the last axis of x to n_out bins (PyTorch semantics) as one
+    matmul; a NumPy array or a tensor (the matrix on its device, in its
+    dtype)."""
+    mat = adaptive_avg_pool_matrix(x.shape[-1], n_out)
+    if isinstance(x, torch.Tensor):
+        return x @ torch.from_numpy(mat).to(device=x.device, dtype=x.dtype)
+    return x @ mat

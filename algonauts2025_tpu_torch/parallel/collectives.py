@@ -133,7 +133,8 @@ class TensorParallel:
 class Parallel:
     """What a trainer needs of a ``("data", "model")`` mesh: the groups,
     this process's ranks, the row gather of a split batch, the mean of the
-    gradients over the data group and whether this process writes files."""
+    gradients over the data group, the optimizer's sums over the model
+    group and whether this process writes files."""
 
     def __init__(self, mesh: DeviceMesh) -> None:
         self.mesh = mesh
@@ -164,11 +165,21 @@ class Parallel:
         if bucket:
             self._mean(bucket)
 
+    @torch.no_grad()
+    def sum_over_model(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Each tensor summed over the model group, in one flat all-reduce:
+        the partial sums of a whole-parameter optimizer stage (Adafactor's
+        statistics, LAMB's norms) for every split parameter at once."""
+        return _sum_flat(parts, self.model_group)
+
     def _mean(self, grads: list[torch.Tensor]) -> None:
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=self.data_group)
-        flat /= self.n_data
-        at = 0
-        for g in grads:
-            g.copy_(flat[at : at + g.numel()].view_as(g))
-            at += g.numel()
+        for g, total in zip(grads, _sum_flat(grads, self.data_group)):
+            g.copy_(total).div_(self.n_data)
+
+
+def _sum_flat(parts: list[torch.Tensor], group) -> list[torch.Tensor]:
+    """Each tensor summed over ``group`` through one all-reduce of their
+    concatenation; views of it, shaped as ``parts``."""
+    flat = torch.cat([x.reshape(-1) for x in parts])
+    dist.all_reduce(flat, group=group)
+    return [piece.view_as(x) for piece, x in zip(flat.split([x.numel() for x in parts]), parts)]

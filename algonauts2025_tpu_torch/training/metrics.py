@@ -275,6 +275,14 @@ class BaseMetricConfig(pydantic.BaseModel):
     def build(self, n_groups: int | None = None) -> Metric:
         raise NotImplementedError
 
+    @property
+    def is_grouped(self) -> bool:
+        return self.name == "GroupedMetric"
+
+    @property
+    def is_retrieval(self) -> bool:
+        return self.name in ("TopkAcc", "Rank")
+
 
 class PearsonMetricConfig(BaseMetricConfig):
     name: tp.Literal["MultidimPearsonCorrCoef"] = "MultidimPearsonCorrCoef"

@@ -14,18 +14,34 @@ dtype (bf16 at the flagship: one fewer fp32 copy of 0.9 B params), updated
 from the stored value and bias-corrected in fp32 before the cast.  The
 schedule is a plain ``step -> lr`` function; from the SWA start step the
 LR cosine-anneals to ``swa_lr`` and stays there.
+
+Under tensor parallelism a rank holds a slice of some parameters
+(``set_shards``: a ``Shard`` each, the split dim and the whole shape).
+The elementwise rules need nothing more.  Adafactor and LAMB reduce over
+the whole parameter, as optax does over a global array in the JAX
+package: Adafactor picks its factored dims from the whole shape, its row
+and column means over a split dim are sums over the group divided by the
+whole size, and the update clip and the parameter RMS are means over the
+whole parameter; LAMB's two norms are square roots of sums over the
+group.  The rules of the split parameters run in step, and each
+dependent stage sums every split parameter's partial sums in one
+collective (Adafactor: the row and column statistics, then the squared
+sums of the update and the parameter; LAMB: the squared sums).  A
+replicated parameter runs the unsplit rule.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import types
 import typing as tp
 
 import numpy as np
 import pydantic
 import torch
 
-__all__ = ["Adam", "OptaxRule", "OptimizerConfig", "SchedulerConfig", "OptimConfig"]
+__all__ = ["Adam", "OptaxRule", "Shard", "OptimizerConfig", "SchedulerConfig", "OptimConfig"]
 
 Schedule = tp.Callable[[int], float]
 
@@ -40,6 +56,19 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(F32(1) - F32(decay) ** F32(count))
 
 
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """This rank's slice of a parameter split over a tensor-parallel
+    group: the split ``dim`` and the whole parameter's ``shape``."""
+
+    dim: int
+    shape: tuple[int, ...]
+
+
+#: sums each tensor of a list over the tensor-parallel group, in one collective
+SumOverGroup = tp.Callable[[list[torch.Tensor]], list[torch.Tensor]]
+
+
 class _CountedOptimizer(torch.optim.Optimizer):
     """A ``torch.optim.Optimizer`` with optax's step count (kept in its
     state dict).  The learning rate of a step is ``param_groups[0]["lr"]``."""
@@ -47,6 +76,24 @@ class _CountedOptimizer(torch.optim.Optimizer):
     def __init__(self, params, defaults: dict) -> None:
         super().__init__(params, defaults)
         self.count = 0
+        self.shards: dict[torch.Tensor, Shard] = {}
+        self.sum_over_group: SumOverGroup | None = None
+
+    def set_shards(self, shards: tp.Mapping[torch.Tensor, Shard],
+                   sum_over_group: SumOverGroup) -> None:
+        """Tensor parallelism: ``shards`` maps each parameter this rank holds
+        a slice of to its split; ``sum_over_group`` sums partial sums over
+        the ranks that hold the other slices.  Only the rules that reduce
+        over a whole parameter read them."""
+        self.shards = dict(shards)
+        self.sum_over_group = sum_over_group
+
+    def state_split_dim(self, p: torch.Tensor, key: str) -> int | None:
+        """The dim of ``p``'s state ``key`` that is split like ``p`` (None:
+        the state is whole on every rank).  A state shaped like the
+        parameter splits on the parameter's dim."""
+        shard = self.shards.get(p)
+        return None if shard is None else shard.dim
 
     def state_dict(self):
         out = super().state_dict()
@@ -233,7 +280,8 @@ def _adadelta(g, p, state, lr, count, hp):
 
 
 def _factored_dims(shape: tuple[int, ...]) -> tuple[int, int] | None:
-    """optax's choice of the two dims to factor (the largest two, from 128)."""
+    """optax's choice of the two dims to factor (the largest two, from 128);
+    a split parameter passes its whole shape."""
     if len(shape) < 2:
         return None
     order = np.argsort(shape)
@@ -242,47 +290,132 @@ def _factored_dims(shape: tuple[int, ...]) -> tuple[int, int] | None:
     return int(order[-2]), int(order[-1])
 
 
-def _adafactor(g, p, state, lr, count, hp):
+def _adafactor(g, p, state, lr, count, hp, shard: Shard | None = None):
     """optax.adafactor's defaults: factored second moments (decay
     1 - t^-0.8, eps 1e-30), updates clipped to block RMS 1, times lr, times
-    the param's RMS (at least 1e-3), negated."""
+    the param's RMS (at least 1e-3), negated.
+
+    A generator: on a ``shard`` it yields twice, the partial sums over the
+    split dim that the whole parameter's statistics need, then the squared
+    sums of the update and the param, and receives each list summed over
+    the group; with no shard it returns at once."""
     decay = F32(1.0) - F32(count) ** F32(-0.8)
     keep, new = float(decay), float(F32(1.0) - decay)
     grad_sqr = g * g + 1e-30
-    dims = _factored_dims(tuple(p.shape))
+    dims = _factored_dims(tuple(p.shape) if shard is None else shard.shape)
     if dims is not None:
         d1, d0 = dims
-        if "v_row" not in state:
-            state["v_row"] = torch.zeros_like(grad_sqr.mean(dim=d0))
-            state["v_col"] = torch.zeros_like(grad_sqr.mean(dim=d1))
-        v_row = keep * state["v_row"] + new * grad_sqr.mean(dim=d0)
-        v_col = keep * state["v_col"] + new * grad_sqr.mean(dim=d1)
-        state["v_row"], state["v_col"] = v_row, v_col
         reduced_d1 = d1 - 1 if d1 > d0 else d1
-        row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+        split = None if shard is None else shard.dim
+        if "v_row" not in state:
+            state["v_row"] = torch.zeros_like(grad_sqr.sum(dim=d0))
+            state["v_col"] = torch.zeros_like(grad_sqr.sum(dim=d1))
+        if split not in (d0, d1):  # no shard, or split along a dim that is not factored
+            if shard is not None:
+                yield []
+            v_row = keep * state["v_row"] + new * grad_sqr.mean(dim=d0)
+            v_col = keep * state["v_col"] + new * grad_sqr.mean(dim=d1)
+            row_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+        elif split == d0:  # v_row is whole: its mean over d0 is a sum over the group
+            (row_sum,) = yield [grad_sqr.sum(dim=d0)]
+            v_row = keep * state["v_row"] + new * (row_sum / shard.shape[d0])
+            v_col = keep * state["v_col"] + new * grad_sqr.mean(dim=d1)
+            row_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+        else:  # v_col is whole, and v_row's mean runs over the split
+            v_row = keep * state["v_row"] + new * grad_sqr.mean(dim=d0)
+            col_sum, row_sum = yield [grad_sqr.sum(dim=d1),
+                                      v_row.sum(dim=reduced_d1, keepdim=True)]
+            v_col = keep * state["v_col"] + new * (col_sum / shard.shape[d1])
+            row_mean = row_sum / shard.shape[d1]
+        state["v_row"], state["v_col"] = v_row, v_col
+        row_factor = (v_row / row_mean) ** -0.5
         u = g * row_factor.unsqueeze(d0) * (v_col**-0.5).unsqueeze(d1)
     else:
+        if shard is not None:
+            yield []
         _zeros(state, p, "v")
         state["v"] = keep * state["v"] + new * grad_sqr
         u = g * state["v"] ** -0.5
-    u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / 1.0, min=1.0)
+    if shard is None:
+        u_rms = torch.sqrt(torch.mean(u * u))
+        rms = torch.sqrt(torch.mean(p * p))
+    else:
+        u_sqr, p_sqr = yield [(u * u).sum(), (p * p).sum()]
+        n = math.prod(shard.shape)
+        u_rms, rms = torch.sqrt(u_sqr / n), torch.sqrt(p_sqr / n)
+    u = u / torch.clamp(u_rms / 1.0, min=1.0)
     u = u * lr
-    rms = torch.sqrt(torch.mean(p * p))
     u = u * torch.where(rms <= 1e-3, 1e-3, rms)
     return -u
 
 
-def _lamb(g, p, state, lr, count, hp):
+def _adafactor_split_dims(shard: Shard) -> dict[str, int | None]:
+    """Which dim of Adafactor's factored moments is split like the param:
+    v_row lacks d0 and v_col lacks d1, and a moment that lacks the split
+    dim is whole on every rank."""
+    d1, d0 = _factored_dims(shard.shape)
+    out: dict[str, int | None] = {}
+    for key, gone in (("v_row", d0), ("v_col", d1)):
+        if shard.dim == gone:
+            out[key] = None
+        else:
+            out[key] = shard.dim - 1 if shard.dim > gone else shard.dim
+    return out
+
+
+def _lamb(g, p, state, lr, count, hp, shard: Shard | None = None):
     """optax.lamb: the Adam direction (no L2 term), plus wd p, times the
-    trust ratio ||p|| / ||u|| (1 where either is 0), then -lr."""
+    trust ratio ||p|| / ||u|| (1 where either is 0), then -lr.
+
+    A generator: on a ``shard`` it yields the squared sums of p and u once
+    and receives them summed over the group; with no shard it returns at
+    once."""
     b1, b2 = hp["betas"]
     mu, nu = _adam_moments(g, state, p, b1, b2)
     u = (mu / _bias_correction(b1, count)) / (
         torch.sqrt(nu / _bias_correction(b2, count) + 0.0) + hp["eps"])
     u = u + hp["weight_decay"] * p
-    p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+    if shard is None:
+        p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+    else:
+        p_sqr, u_sqr = yield [(p * p).sum(), (u * u).sum()]
+        p_norm, u_norm = torch.sqrt(p_sqr), torch.sqrt(u_sqr)
     ratio = torch.where((p_norm == 0.0) | (u_norm == 0.0), 1.0, p_norm / (u_norm + 0.0))
     return (u * ratio) * -lr
+
+
+def _delta(out):
+    """A rule's delta: a generator rule on a whole parameter returns at once."""
+    if isinstance(out, types.GeneratorType):
+        try:
+            next(out)
+        except StopIteration as stop:
+            return stop.value
+    return out
+
+
+def _run_in_step(rules: list, sum_over_group: SumOverGroup) -> list[torch.Tensor]:
+    """Run the generator rules of the split parameters stage by stage:
+    every rule's partial sums of a stage go through one ``sum_over_group``
+    (a stage with none makes no call); returns each rule's delta."""
+    deltas: list = [None] * len(rules)
+    replies: list = [None] * len(rules)
+    live = list(range(len(rules)))
+    while live:
+        asks = {}
+        for i in live:
+            try:
+                asks[i] = rules[i].send(replies[i])
+            except StopIteration as stop:
+                deltas[i] = stop.value
+        live = list(asks)
+        flat = [t for i in live for t in asks[i]]
+        summed = sum_over_group(flat) if flat else []
+        at = 0
+        for i in live:
+            replies[i] = summed[at : at + len(asks[i])]
+            at += len(asks[i])
+    return deltas
 
 
 #: name -> (rule, whether the weight decay is torch's L2 term on the gradient;
@@ -299,6 +432,8 @@ _RULES: dict[str, tuple[tp.Callable, bool]] = {
     "Adafactor": (_adafactor, True),
     "LAMB": (_lamb, False),
 }
+#: the rules that reduce over a whole parameter (generators; see ``Shard``)
+_WHOLE_PARAM_RULES = ("Adafactor", "LAMB")
 
 
 class OptaxRule(_CountedOptimizer):
@@ -321,13 +456,29 @@ class OptaxRule(_CountedOptimizer):
             raise ValueError(f"{self.name}.step takes no closure")
         self.count += 1
         rule, l2 = _RULES[self.name]
+        whole = self.name in _WHOLE_PARAM_RULES
+        split, staged = [], []
         for group in self.param_groups:
             lr, wd = float(group["lr"]), group["weight_decay"]
             for p in group["params"]:
                 if p.grad is None:
                     continue
                 g = p.grad + wd * p if (l2 and wd) else p.grad
-                p.add_(rule(g, p, self.state[p], lr, self.count, group))
+                shard = self.shards.get(p) if whole else None
+                if shard is None:
+                    p.add_(_delta(rule(g, p, self.state[p], lr, self.count, group)))
+                else:
+                    split.append(p)
+                    staged.append(rule(g, p, self.state[p], lr, self.count, group, shard))
+        if staged:
+            for p, delta in zip(split, _run_in_step(staged, self.sum_over_group)):
+                p.add_(delta)
+
+    def state_split_dim(self, p: torch.Tensor, key: str) -> int | None:
+        shard = self.shards.get(p)
+        if shard is not None and key in ("v_row", "v_col"):
+            return _adafactor_split_dims(shard)[key]
+        return super().state_split_dim(p, key)
 
 
 class OptimizerConfig(pydantic.BaseModel):

@@ -19,8 +19,9 @@ The port of algonauts2025_tpu/training/trainer.py:
   and the predictions and InfoNCE latents are gathered before the loss
   (the losses and the metrics couple the rows), the gradients are
   averaged over "data", and the weights that ``parallel.sharding`` names
-  split over "model" with the Megatron collectives.  A step, a loss and a
-  metric equal those of one device.  Checkpoints and the SWA mean hold
+  split over "model" with the Megatron collectives (Adafactor and LAMB sum
+  a split weight's statistics over "model": ``optim.Shard``).  A step, a
+  loss and a metric equal those of one device.  Checkpoints and the SWA mean hold
   the full tensors, and rank 0 writes the files, so a checkpoint loads on
   any mesh.
 """
@@ -45,7 +46,7 @@ from ..parallel.sharding import apply_tensor_parallel, shard_tensor, state_shard
 from ..runtime import default_device
 from ..utils.profiling import step_range, trace
 from .metrics import Metric, MetricNeverUpdated
-from .optim import OptimConfig
+from .optim import OptimConfig, Shard
 
 logger = logging.getLogger(__name__)
 
@@ -83,11 +84,6 @@ def _to_host(tree: tp.Any) -> tp.Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_host(v) for v in tree)
     return tree
-
-
-#: optimizers whose update reduces over a whole parameter (a norm, a
-#: factored moment): a rank's slice would give another update
-_WHOLE_PARAM_RULES = ("Adafactor", "LAMB")
 
 
 class BrainTrainer:
@@ -148,12 +144,6 @@ class BrainTrainer:
             self._parallel = Parallel(self.mesh)
             tp_group = self._parallel.tp
             if tp_group is not None:
-                name = self.optim_config.optimizer.name
-                if name in _WHOLE_PARAM_RULES:
-                    raise ValueError(
-                        f"{name} reduces over whole parameters, which tensor parallelism "
-                        "splits; use model_parallel=1 (data parallelism) with it"
-                    )
                 self._specs = state_shardings(self.model, tp_group.size)
                 apply_tensor_parallel(self.model, self._specs, tp_group)
         swa_start_step = int(total_steps * cfg.swa_start) if cfg.swa_enabled else None
@@ -164,6 +154,14 @@ class BrainTrainer:
             swa_lr=cfg.swa_lr,
             steps_per_epoch=max(1, total_steps // max(1, cfg.n_epochs)),
         )
+        if self._specs:
+            # Adafactor and LAMB reduce over whole parameters: they sum a
+            # split parameter's statistics over the model group
+            self.optimizer.set_shards(
+                {p: Shard(self._specs[name], self._full_shape(name, p))
+                 for name, p in self.model.named_parameters() if self._specs.get(name) is not None},
+                self._parallel.sum_over_model,
+            )
         self.step = 0
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("Total parameters: %d (this rank's)", n_params)
@@ -424,10 +422,10 @@ class BrainTrainer:
             return None
         return Path(self.config.folder) / f"{name}.ckpt"
 
-    def _full(self, name: str, local: torch.Tensor) -> torch.Tensor:
-        """The full tensor of a parameter (or of a state shaped like it)
-        from every model rank's part; a collective under tensor parallelism."""
-        dim = self._specs.get(name)
+    def _full(self, name: str, local: torch.Tensor, dim: int | None) -> torch.Tensor:
+        """The full tensor of parameter ``name`` (or of a state of it) split
+        on ``dim`` from every model rank's part; a collective under tensor
+        parallelism."""
         if dim is None:
             return local
         group = self._parallel.model_group
@@ -435,9 +433,9 @@ class BrainTrainer:
         torch.distributed.all_gather(parts, local.contiguous(), group=group)
         return unshard_tensor(name, parts, dim)
 
-    def _own(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's part of a full parameter (or state shaped like it)."""
-        dim = self._specs.get(name)
+    def _own(self, name: str, full: torch.Tensor, dim: int | None) -> torch.Tensor:
+        """This rank's part of the full parameter ``name`` (or of a state of
+        it) split on ``dim``."""
         if dim is None:
             return full
         tp_group = self._parallel.tp
@@ -445,12 +443,14 @@ class BrainTrainer:
 
     def _full_state_dict(self) -> Params:
         """A host copy of the model's full state dict (every rank gets it)."""
-        return _to_host({k: self._full(k, v) for k, v in self.model.state_dict().items()})
+        return _to_host({k: self._full(k, v, self._specs.get(k))
+                         for k, v in self.model.state_dict().items()})
 
     def _load_full_params(self, full: tp.Mapping[str, torch.Tensor], strict: bool = True) -> None:
         """Load a full state dict (a checkpoint's, the SWA mean) into this
         rank's parts."""
-        self.model.load_state_dict({k: self._own(k, v) for k, v in full.items()}, strict=strict)
+        self.model.load_state_dict({k: self._own(k, v, self._specs.get(k)) for k, v in full.items()},
+                                   strict=strict)
 
     def _full_shape(self, name: str, local: torch.Tensor) -> tuple[int, ...]:
         shape = list(local.shape)
@@ -461,7 +461,9 @@ class BrainTrainer:
 
     def _optimizer_states(self, opt_state: dict[str, tp.Any], to_full: bool) -> dict[str, tp.Any]:
         """An optimizer state dict whose per-parameter tensors of the split
-        parameters are made full (``to_full``) or cut to this rank's part."""
+        parameters are made full (``to_full``) or cut to this rank's part
+        (each on the dim the optimizer names: Adafactor's factored moments
+        lack one dim of the parameter, or are whole)."""
         if not self._specs:
             return opt_state
         params = dict(self.model.named_parameters())
@@ -470,15 +472,15 @@ class BrainTrainer:
         states = {}
         for index, state in opt_state["state"].items():
             name = order[int(index)]
-            local = params[name]
-            shape = tuple(local.shape) if to_full else self._full_shape(name, local)
+            param = params[name]
 
-            def convert(v):
-                if not isinstance(v, torch.Tensor) or tuple(v.shape) != shape:
+            def convert(key, v):
+                if not isinstance(v, torch.Tensor):
                     return v
-                return self._full(name, v) if to_full else self._own(name, v)
+                dim = self.optimizer.state_split_dim(param, key)
+                return self._full(name, v, dim) if to_full else self._own(name, v, dim)
 
-            states[index] = {k: convert(v) for k, v in state.items()}
+            states[index] = {k: convert(k, v) for k, v in state.items()}
         return {**opt_state, "state": states}
 
     def _host_state(self) -> dict[str, tp.Any]:

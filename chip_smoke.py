@@ -106,8 +106,10 @@ Phases (any failure exits non-zero):
     over NCCL (a localhost rendezvous, world 1), ``get_mesh(n_devices=1)``
     and phase 4's trainer on it: its first 3 losses are phase 4's; (b) two
     processes on the one card joined by gloo (which takes CUDA tensors):
-    dp2 and dp1 x tp2 on the flagship trunk, their losses held to (a)'s;
-    (c) phase 5's ViT-G with each window's 8192 tokens over 8 shards
+    dp2 and dp1 x tp2 on the flagship trunk, their losses held to (a)'s,
+    then in the dp1 x tp2 world Adafactor and LAMB (which reduce over
+    whole parameters), 2 steps each, held to one process of each on the
+    card; (c) phase 5's ViT-G with each window's 8192 tokens over 8 shards
     (ring attention) on phase 5's first window batch, against phase 5's
     features, rows 6 and 7 launching per shard and row 4 never; (d) phase
     6's Llama-3.2-3B in 4 pipeline stages, one (8, 1024) batch in 2
@@ -2298,6 +2300,13 @@ def check_fmri_mlp_against_cpu() -> None:
 PARALLEL_STEPS = 3
 DP1_RTOL = 1e-6
 TWO_RANK_RTOL = 1e-6
+#: (b) and --cards: Adafactor and LAMB, which reduce over whole parameters,
+#: in the dp x tp2 world after phase 4's optimizer, 2 steps each against
+#: one process of the same optimizer, within TWO_RANK_RTOL (first readings
+#: on an H100: 0, bit-equal); a constant LR, so that the second step's
+#: loss moves with the first update
+TP_OPTIMIZERS = {name: {"optimizer": {"name": name, "lr": 1e-2}} for name in ("Adafactor", "LAMB")}
+TP_OPTIM_STEPS = 2
 #: (c) and (d): shards and stages, all on cuda:0
 SP_SHARDS = 8
 PP_STAGES = 4
@@ -2318,12 +2327,12 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def parallel_trainer_steps(mesh, n_steps: int = PARALLEL_STEPS, **model_kw) -> dict:
+def parallel_trainer_steps(mesh, n_steps: int = PARALLEL_STEPS, **trainer_kw) -> dict:
     """Phase 4's flagship trainer over ``mesh``, from phase 4's seed and its
     first ``n_steps`` batches: the losses, the median step, the peak."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     train = [make_batch(FLAGSHIP_DIMS, 1000, 16, 298, gen) for _ in range(n_steps)]
-    trainer = make_trainer(FLAGSHIP_DIMS, 1000, mesh=mesh, **model_kw)
+    trainer = make_trainer(FLAGSHIP_DIMS, 1000, mesh=mesh, **trainer_kw)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2372,10 +2381,12 @@ def dp_world1_path(run: dict) -> dict:
 
 
 def rank_worker(rank: int, world: int, port: int, model_parallel: int, cards: bool,
-                results) -> None:
+                optimizers: tuple, results) -> None:
     """One rank of (b) or of ``--cards``: on its own card over NCCL, joined
     from torchrun's environment variables by ``init_distributed``
-    (``cards``), or on cuda:0 over gloo with CUDA tensors."""
+    (``cards``), or on cuda:0 over gloo with CUDA tensors.  Phase 4's
+    trainer for each of ``optimizers`` (None: phase 4's; a name of
+    ``TP_OPTIMIZERS``: that one, ``TP_OPTIM_STEPS`` steps) in turn."""
     try:
         if cards:
             os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
@@ -2385,10 +2396,15 @@ def rank_worker(rank: int, world: int, port: int, model_parallel: int, cards: bo
             dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                                     world_size=world)
         try:
-            reset_counts()
-            out = parallel_trainer_steps(get_mesh(world, model_parallel))
-            results.put((rank, {**out, "attention": launch_counts()["attention"],
-                                "device": torch.cuda.current_device()}))
+            outs = []
+            for name in optimizers:
+                reset_counts()
+                kw = {} if name is None else {"n_steps": TP_OPTIM_STEPS,
+                                              "optim": TP_OPTIMIZERS[name]}
+                out = parallel_trainer_steps(get_mesh(world, model_parallel), **kw)
+                outs.append({**out, "attention": launch_counts()["attention"],
+                             "device": torch.cuda.current_device()})
+            results.put((rank, outs))
             dist.barrier()
         finally:
             dist.destroy_process_group()
@@ -2397,12 +2413,14 @@ def rank_worker(rank: int, world: int, port: int, model_parallel: int, cards: bo
         raise
 
 
-def ranks_path(ref: dict, world: int, cards: bool, part: str) -> dict:
+def ranks_path(ref: dict, world: int, cards: bool, part: str, tp_refs: dict) -> dict:
     """Phase 4's trainer in ``world`` processes: data parallelism over all
-    of them (dp{world}) and dp{world/2} x tp2, the losses held to ``ref``'s.
-    (b): two ranks on the one card over gloo, which takes CUDA tensors for
-    the all-reduce, all-gather and broadcast of DP and TP (checked on an
-    H100: PERF.md); ``--cards``: one rank a card over NCCL."""
+    of them (dp{world}) and dp{world/2} x tp2, the losses held to ``ref``'s;
+    the dp{world/2} x tp2 world then runs Adafactor and LAMB, each held to
+    ``tp_refs[name]``, one process's run of that optimizer.  (b):
+    two ranks on the one card over gloo, which takes CUDA tensors for the
+    all-reduce, all-gather and broadcast of DP and TP (checked on an H100:
+    PERF.md); ``--cards``: one rank a card over NCCL."""
     import multiprocessing
     import queue
 
@@ -2412,12 +2430,14 @@ def ranks_path(ref: dict, world: int, cards: bool, part: str) -> dict:
     out = {}
     ctx = multiprocessing.get_context("spawn")
     where = "one a card over NCCL" if cards else "on cuda:0 over gloo"
-    for label, model_parallel in ((f"dp{world}", 1), (f"dp{world // 2} x tp2", 2)):
+    tp = f"dp{world // 2} x tp2"
+    for label, model_parallel, optimizers in ((f"dp{world}", 1, (None,)),
+                                              (tp, 2, (None, *TP_OPTIMIZERS))):
         t0 = time.perf_counter()
         results = ctx.Queue()
         port = free_port()
         procs = [ctx.Process(target=rank_worker,
-                             args=(rank, world, port, model_parallel, cards, results))
+                             args=(rank, world, port, model_parallel, cards, optimizers, results))
                  for rank in range(world)]
         got = {}
         try:
@@ -2438,22 +2458,37 @@ def ranks_path(ref: dict, world: int, cards: bool, part: str) -> dict:
                 if proc.is_alive():
                     proc.kill()
                     proc.join()
-        want = ref["losses"]
-        rel = max(abs(a - b) / abs(b) for r in got.values() for a, b in zip(r["losses"], want))
         seconds = time.perf_counter() - t0
         depth = FmriEncoderConfig().depth
-        ranks = [got[r] for r in range(world)]
-        log(f"{part} {label}, {world} ranks {where}: losses {[r['losses'] for r in ranks]} "
-            f"against {ref['what']} {want}, max rel {rel:.3e} (tol {TWO_RANK_RTOL:.0e}); median "
-            f"step {[round(r['step_s'], 4) for r in ranks]} s; peaks "
-            f"{[round(r['peak_gb'], 2) for r in ranks]} GB; params a rank {ranks[0]['n_params']}; "
-            f"cards {[r['device'] for r in ranks]}; row-1 launches "
-            f"{[r['attention'] for r in ranks]}; {seconds:.1f} s")
-        if not rel <= TWO_RANK_RTOL or any(r["attention"] != 2 * depth * PARALLEL_STEPS
-                                           for r in ranks):
-            raise SystemExit(f"{part} {label} disagrees with one device")
-        out[label] = {"rel": rel, "seconds": seconds}
+        for i, name in enumerate(optimizers):
+            ranks = [got[r][i] for r in range(world)]
+            want, what, steps = ((ref["losses"], ref["what"], PARALLEL_STEPS) if name is None
+                                 else (tp_refs[name]["losses"], f"one process's {name}",
+                                       TP_OPTIM_STEPS))
+            rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r["losses"], want))
+            run = label if name is None else f"{tp} {name}"
+            log(f"{part} {run}, {world} ranks {where}: losses {[r['losses'] for r in ranks]} "
+                f"against {what} {want}, max rel {rel:.3e} (tol {TWO_RANK_RTOL:.0e}); median "
+                f"step {[round(r['step_s'], 4) for r in ranks]} s; peaks "
+                f"{[round(r['peak_gb'], 2) for r in ranks]} GB; params a rank "
+                f"{ranks[0]['n_params']}; cards {[r['device'] for r in ranks]}; row-1 launches "
+                f"{[r['attention'] for r in ranks]}")
+            if not rel <= TWO_RANK_RTOL or any(r["attention"] != 2 * depth * steps for r in ranks):
+                raise SystemExit(f"{part} {run} disagrees with one device")
+            out[run] = {"rel": rel, "step_s": statistics.median(r["step_s"] for r in ranks)}
+        out[label]["seconds"] = seconds
     return out
+
+
+def tp_optimizer_refs() -> dict:
+    """One process's run of phase 4's trainer with each of TP_OPTIMIZERS on
+    the card: what (b) and --cards hold tensor parallelism to."""
+    refs = {}
+    for name, optim in TP_OPTIMIZERS.items():
+        refs[name] = parallel_trainer_steps(None, n_steps=TP_OPTIM_STEPS, optim=optim)
+        log(f"one process, {name}: losses {refs[name]['losses']}, median step "
+            f"{refs[name]['step_s']:.4f} s, peak {refs[name]['peak_gb']:.2f} GB")
+    return refs
 
 
 @torch.no_grad()
@@ -2584,9 +2619,10 @@ def parallel_path(run: dict, video: dict, name_and_limit: str) -> None:
     t11 = time.perf_counter()
     dp1 = dp_world1_path(run)
     log(f"(a) {dp1['seconds']:.1f} s, peak {dp1['peak_gb']:.2f} GB on {name_and_limit}")
-    two = ranks_path({**dp1, "what": "(a)'s"}, 2, cards=False, part="(b)")
-    log(f"(b) dp2 {two['dp2']['seconds']:.1f} s, dp1 x tp2 {two['dp1 x tp2']['seconds']:.1f} s "
-        f"on {name_and_limit}")
+    two = ranks_path({**dp1, "what": "(a)'s"}, 2, cards=False, part="(b)",
+                     tp_refs=tp_optimizer_refs())
+    log(f"(b) dp2 {two['dp2']['seconds']:.1f} s, dp1 x tp2 (Adam, Adafactor, LAMB) "
+        f"{two['dp1 x tp2']['seconds']:.1f} s on {name_and_limit}")
     sp = sequence_parallel_path(video, local_mesh(SP_SHARDS, "seq", "cuda:0"))
     log(f"(c) {sp['seconds']:.1f} s, peak {sp['peak_gb']:.2f} GB on {name_and_limit}")
     pp = pipeline_path(local_mesh(PP_STAGES, "stage", "cuda:0"))
@@ -2596,9 +2632,10 @@ def parallel_path(run: dict, video: dict, name_and_limit: str) -> None:
 
 def cards_path(n: int, name_and_limit: str) -> None:
     """``--cards N``: phase 11 over N cards of one host instead of one:
-    phase 4's trainer as dpN and dp(N/2) x tp2 in N processes over NCCL
-    (one a card, joined through ``init_distributed``), held to its
-    one-card losses; phase 5's ViT-G ring over N cards (a copy of the
+    phase 4's trainer as dpN and dp(N/2) x tp2 (Adam, then Adafactor and
+    LAMB) in N processes over NCCL (one a card, joined through
+    ``init_distributed``), held to its one-card losses; phase 5's ViT-G
+    ring over N cards (a copy of the
     weights on each) and phase 6's Llama in N stages, one a card, each
     held to one card as (c) and (d) are.  N divides the ViT-G's 32
     tubelets and the Llama's 28 layers (2 or 4)."""
@@ -2606,9 +2643,11 @@ def cards_path(n: int, name_and_limit: str) -> None:
     ref = parallel_trainer_steps(None)
     log(f"one card: losses {ref['losses']}, median step {ref['step_s']:.4f} s, peak "
         f"{ref['peak_gb']:.2f} GB")
-    ranks = ranks_path({**ref, "what": "one card's"}, n, cards=True, part=f"({n} cards)")
-    log(f"({n} cards) " + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in ranks.items())
-        + f" on {name_and_limit}")
+    ranks = ranks_path({**ref, "what": "one card's"}, n, cards=True, part=f"({n} cards)",
+                       tp_refs=tp_optimizer_refs())
+    log(f"({n} cards) " + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in ranks.items()
+                                    if "seconds" in v) + f" (the tp world with Adam, Adafactor, "
+        f"LAMB) on {name_and_limit}")
     sp = sequence_parallel_path(None, local_mesh(n, "seq"), part=f"({n} cards)")
     log(f"({n} cards) ring {sp['seconds']:.1f} s on {name_and_limit}")
     pp = pipeline_path(local_mesh(n, "stage"), part=f"({n} cards)")

@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pydantic
 import pytest
 import torch
 
@@ -283,6 +284,21 @@ def test_metrics_surface_matches_jax(rng):
             np.testing.assert_allclose([have[k] for k in want], list(want.values()), rtol=1e-5)
         else:
             assert have == pytest.approx(want, rel=1e-5)
+
+
+@pytest.mark.parametrize("config,kind", [
+    ({"log_name": "pearson", "name": "MultidimPearsonCorrCoef"}, (False, False)),
+    ({"log_name": "subj", "name": "GroupedMetric"}, (True, False)),
+    ({"log_name": "ret", "name": "TopkAcc"}, (False, True)),
+    ({"log_name": "rank", "name": "Rank"}, (False, True)),
+    ({"log_name": "online", "name": "OnlinePearsonCorr"}, (False, False)),
+])
+def test_metric_config_kind_matches_jax(config, kind):
+    """``BaseMetricConfig.is_grouped`` and ``.is_retrieval`` of each config
+    class, as the JAX package's."""
+    ref = pydantic.TypeAdapter(jax_metrics.MetricConfig).validate_python(config)
+    got = pydantic.TypeAdapter(metrics.MetricConfig).validate_python(config)
+    assert (got.is_grouped, got.is_retrieval) == (ref.is_grouped, ref.is_retrieval) == kind
 
 
 @pytest.mark.parametrize("metric_name,kwargs", [

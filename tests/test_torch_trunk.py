@@ -103,6 +103,24 @@ def test_pool_matrix_matches_jax_and_torch(n_in, n_out):
                                torch.nn.functional.adaptive_avg_pool1d(x, n_out))
 
 
+@pytest.mark.parametrize("n_in,n_out", [(298, 100), (13, 5), (7, 7)])
+def test_adaptive_avg_pool1d_matches_jax(n_in, n_out):
+    """``ops.adaptive_avg_pool1d`` on a NumPy array equals the JAX package's
+    (the same NumPy matmul), and on a tensor its JAX-array result and
+    torch's AdaptiveAvgPool1d (atol 1e-6)."""
+    from algonauts2025_tpu.ops import adaptive_avg_pool1d as jax_pool1d
+    from algonauts2025_tpu_torch.ops import adaptive_avg_pool1d
+
+    x = np.random.default_rng(0).standard_normal((2, 3, n_in)).astype(np.float32)
+    np.testing.assert_array_equal(adaptive_avg_pool1d(x, n_out), jax_pool1d(x, n_out))
+    got = adaptive_avg_pool1d(torch.from_numpy(x), n_out)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_pool1d(jnp.asarray(x), n_out)),
+                               atol=1e-6, rtol=0)
+    torch.testing.assert_close(got, torch.nn.functional.adaptive_avg_pool1d(torch.from_numpy(x), n_out),
+                               atol=1e-6, rtol=0)
+
+
 def test_init_matches_flax_statistics():
     """init_weights draws flax's initialisers: each parameter's mean and
     spread match the flax init of the same model (constants exactly)."""

@@ -99,7 +99,8 @@ def _trainer(cfg: dict, mesh, folder=None):
     return BrainTrainer(
         model=model,
         loss_fn=build_loss({"name": cfg.get("loss", "MSELoss")}),
-        optim_config=OptimConfig(optimizer={"name": "Adam", "lr": 1e-3}),
+        optim_config=OptimConfig(optimizer={"name": cfg.get("optimizer", "Adam"),
+                                            "lr": cfg.get("lr", 1e-3)}),
         metrics=metrics,
         config=TrainerConfig(n_epochs=cfg.get("n_epochs", 2), folder=folder,
                              save_checkpoints=folder is not None, seed=0,
@@ -174,18 +175,33 @@ def one_step(rank: int, world: int, model_parallel: int, cfg: dict, full: dict,
     return {"loss": loss.item(), "aux": {k: v.item() for k, v in aux.items()}, "params": params}
 
 
-def refused_optimizer(rank: int, world: int, cfg: dict, name: str) -> str:
-    """The error of ``init_state`` on a (1, world) mesh with optimizer
-    ``name`` ("no error" if there is none)."""
+def train_steps(rank: int, world: int, model_parallel: int, runs: list) -> list[dict]:
+    """For each ``(cfg, full, batches)`` of ``runs``: one train step a batch
+    on a fresh mesh from ``full``; returns the losses, the full params and
+    the full optimizer state (as a checkpoint holds it), after checking
+    that the full state cuts back to this rank's."""
     from algonauts2025_tpu_torch.parallel import get_mesh
 
-    trainer = _trainer(cfg, get_mesh(world, world))
-    trainer.optim_config.optimizer.name = name
-    try:
-        trainer.init_state(None, total_steps=1)
-    except ValueError as err:
-        return str(err)
-    return "no error"
+    out = []
+    for cfg, full, batches in runs:
+        mesh = get_mesh(world, model_parallel)
+        trainer = _trainer(cfg, mesh)
+        trainer.init_state(None, total_steps=len(batches))
+        _load_full(trainer, full, model_parallel, mesh)
+        losses = [trainer.train_step({k: torch.from_numpy(v) for k, v in b.items()})[0].item()
+                  for b in batches]
+        state = trainer._host_state()
+        local = trainer.optimizer.state_dict()["state"]
+        for index, values in trainer._optimizer_states(state["opt_state"], False)["state"].items():
+            for key, value in values.items():
+                torch.testing.assert_close(value, local[index][key], rtol=0, atol=0)
+        out.append({
+            "losses": losses,
+            "params": {k: v.numpy() for k, v in state["params"].items()},
+            "opt_state": {i: {k: v.numpy() for k, v in values.items()}
+                          for i, values in state["opt_state"]["state"].items()},
+        })
+    return out
 
 
 def make_batch(cfg: dict, b: int, seed: int = 0) -> dict:
