@@ -46,7 +46,8 @@ from . import _cuda
 
 __all__ = ["flash_attention", "fast_flash_attention", "flash_attention_packed",
            "bounded_attention_plain", "fast_attention_plain", "flash_attention_plain",
-           "packed_attention_plain", "check_tma_layout", "launch_counts"]
+           "packed_attention_plain", "check_tma_layout", "tc_block", "tc_launch_regs",
+           "launch_counts"]
 
 #: kernel launches since the last reset, counted where the kernel launches
 launch_counts: dict[str, int] = {"flash_attention": 0, "flash_masked": 0, "flash_fast": 0,
@@ -152,6 +153,52 @@ def flash_attention_plain(
 
 #: TMA's alignment of a tensor's base address and of its strides, in bytes
 _TMA_ALIGN = 16
+
+#: the bf16 kernel's block by the head dim it runs at (csrc/flash_attention.cu,
+#: ``tc::Block``): consumer warpgroups of 64 query rows, K/V ring stages, and
+#: the registers a consumer and a producer thread keep after setmaxnreg
+_TC_BLOCKS = {64: (3, 3, 160, 32), 128: (2, 2, 240, 24)}
+_TC_KEYS = 128  # keys per streamed tile
+_TC_Q_SLOTS = 2  # q tiles a block holds: this item's and the next one's
+#: the registers of an SM, the most a thread may hold, and the dynamic shared
+#: memory a block may use on sm_90
+SM90_REGISTERS, SM90_MAX_THREAD_REGISTERS, SM90_MAX_SMEM = 65536, 255, 232448
+
+
+def tc_launch_regs(threads: int) -> int:
+    """The registers a thread of a ``threads``-thread block holds at launch
+    under ``__launch_bounds__(threads, 1)``: the register file over the
+    threads, at most 255, in the multiples of 8 that ptxas allocates."""
+    return min(SM90_REGISTERS // threads, SM90_MAX_THREAD_REGISTERS) // 8 * 8
+
+
+def tc_block(head_dim: int, masked: bool = False) -> dict[str, int]:
+    """The block the bf16 kernel launches for ``head_dim`` (1..128; it runs
+    at 64 or 128, zero-padded) with masked numerics (``masked``: the
+    masked, packed and Llama calls) or unmasked ones: a pure function
+    mirroring ``tc::Block``.
+
+    ``smem_bytes`` counts the q slots, ``stages`` K and V tiles (unmasked at
+    d = 64, each V tile with a 64-column panel of ones beside it, over
+    which P V sums each row of the rounded p), the mbarriers (full / empty
+    for each q slot, and for K and for V a stage) and the slack that
+    aligns the base to 1024 bytes; ``launch_regs`` is ``tc_launch_regs`` of
+    the block, which the setmaxnreg split of the register file must not
+    exceed."""
+    if not 1 <= head_dim <= 128:
+        raise ValueError(f"the bf16 flash kernel takes head dims 1..128, got {head_dim}")
+    d = 64 if head_dim <= 64 else 128
+    warpgroups, stages, consumer_regs, producer_regs = _TC_BLOCKS[d]
+    rows, threads = 64 * warpgroups, 128 * warpgroups + 128
+    tile = _TC_KEYS * d * 2
+    ones = _TC_KEYS * 128 if d == 64 and not masked else 0
+    return {
+        "head_dim": d, "warpgroups": warpgroups, "stages": stages, "q_slots": _TC_Q_SLOTS, "rows": rows,
+        "threads": threads,
+        "smem_bytes": _TC_Q_SLOTS * rows * d * 2 + stages * (2 * tile + ones) + 8 * (2 * _TC_Q_SLOTS + 4 * stages)
+        + 1024,
+        "consumer_regs": consumer_regs, "producer_regs": producer_regs, "launch_regs": tc_launch_regs(threads),
+    }
 
 
 def check_tma_layout(name: str, shape, strides, data_ptr: int, element_size: int) -> None:

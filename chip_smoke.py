@@ -19,9 +19,12 @@ Phases (any failure exits non-zero):
    trunk attention also runs a layout that takes its one-element loads.
    The flash kernels run bf16 on the tensor cores and fp32 on the CUDA
    cores: each fp32 edge case has a bf16 twin, and the SASS of every bf16
-   instantiation must hold ``HGMMA``, that of every GEMM of the two int8
+   instantiation must hold ``HGMMA`` and the register reallocation
+   (``USETMAXREG``), with no spills and no serialised wgmma in ptxas's
+   report (before any launch), that of every GEMM of the two int8
    kernels ``IGMMA``; the w8a8 kernel must refuse an unaligned K without
-   a launch.  Two mutants of the masked flash
+   a launch.  The flash rows' bounds count their exponentials at the
+   MUFU's rate beside the operations and the bytes.  Two mutants of the masked flash
    kernel, built from patched copies of its source under
    ``_build/mutants`` (one ignores the key lengths, one ignores
    ``causal``), must fail the same check.  The bench-only fast
@@ -249,12 +252,45 @@ def launch_counts() -> dict[str, int]:
     return {key: n for counts in COUNTERS for key, n in counts.items()}
 
 
-def bound(flops: float, nbytes: float, peak_ops: float, peaks: dict[str, float]) -> tuple[float, str]:
-    """The least time for the work: the larger of operations over the peak
-    rate of their type and bytes (each input read once, each output
-    written once) over the memory rate, in ms, and which of the two binds."""
-    by_ops, by_bytes = flops / peak_ops, nbytes / peaks["bytes"]
-    return 1e3 * max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
+def bound(flops: float, nbytes: float, peak_ops: float, peaks: dict[str, float],
+          exps: float = 0.0) -> tuple[float, str]:
+    """The least time for the work: the largest of operations over the peak
+    rate of their type, bytes (each input read once, each output written
+    once) over the memory rate and, for attention, its ``exps``
+    exponentials over the MUFU's ex2 rate (``peaks["exp"]``), in ms, and
+    which of them binds ("operations", "bytes" or "exp")."""
+    terms = {"operations": flops / peak_ops, "bytes": nbytes / peaks["bytes"]}
+    if exps:
+        terms["exp"] = exps / peaks["exp"]
+    by = max(terms, key=terms.get)
+    return 1e3 * terms[by], by
+
+
+#: MUFU ex2 results a clock per SM on sm_90 (the CUDA C++ Programming
+#: Guide's table of arithmetic instruction throughput)
+MUFU_EX2_PER_SM_CLOCK = 16
+
+
+def mufu_rate() -> float:
+    """The card's ex2 a second: 16 a clock per SM x the SM count x the
+    card's max SM clock (``nvidia-smi`` clocks.max.sm)."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = MUFU_EX2_PER_SM_CLOCK * sms * float(mhz) * 1e6
+    log(f"MUFU ex2 rate: {MUFU_EX2_PER_SM_CLOCK} a clock per SM x {sms} SMs x {mhz} MHz = {rate / 1e12:.3f} T/s")
+    return rate
+
+
+def flash_bound(flops: float, nbytes: float, exps: float, peaks: dict[str, float]) -> tuple[float, str, str]:
+    """A bf16 flash row's bound (``bound`` with its exponentials), the term
+    that binds as a kernel record names it (the ex2 are operations, of the
+    MUFU), and the three terms for the log."""
+    bound_ms, bound_by = bound(flops, nbytes, peaks["bfloat16"], peaks, exps)
+    terms = (f"bound by {bound_by}: operations {1e3 * flops / peaks['bfloat16']:.4f} ms "
+             f"({flops / 1e12:.4f} TFLOP), bytes {1e3 * nbytes / peaks['bytes']:.4f} ms ({nbytes / 1e6:.1f} MB), "
+             f"exp {1e3 * exps / peaks['exp']:.4f} ms ({exps / 1e9:.4f} G ex2)")
+    return bound_ms, "operations" if bound_by == "exp" else bound_by, terms
 
 
 def kernel_record(name, source, replaces, err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by):
@@ -309,17 +345,75 @@ def sass_functions(library: Path) -> list[tuple[str, str]]:
 INT8_GEMMS = {"w8a8": 2, "int8_mlp": 3}
 
 
+def tc_instantiation(name: str) -> tuple[int, ...]:
+    """(head dim, masked, bf16 scores) of a mangled ``flash_tc_kernel`` name."""
+    return tuple(int(x) for x in re.findall(r"L[ib](\d+)E", name.split("flash_tc_kernel", 1)[1])[:3])
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's ``-Xptxas -v`` report for ``csrc/<name>.cu``: the one of this
+    process's build, or of a build made now when the library was there."""
+    if name not in _cuda.build_logs:
+        with tempfile.TemporaryDirectory(prefix="ptxas_") as tmp:
+            _cuda.build_logs[name] = subprocess.run(
+                _cuda.nvcc_command(_cuda.CSRC / f"{name}.cu", Path(tmp) / f"lib{name}.so"),
+                check=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True).stdout
+    return _cuda.build_logs[name]
+
+
+def ptxas_kernels(report: str) -> dict[str, dict[str, int]]:
+    """Per kernel (mangled name) of a ptxas report: its registers at launch
+    and the bytes of its spill stores and loads."""
+    kernels, name = {}, None
+    for line in report.splitlines():
+        if found := re.search(r"Compiling entry function '(\w+)'", line):
+            name = found.group(1)
+            kernels[name] = {}
+        elif name and (found := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            kernels[name]["spill_stores"], kernels[name]["spill_loads"] = map(int, found.groups())
+        elif name and (found := re.search(r"Used (\d+) registers", line)):
+            kernels[name]["registers"] = int(found.group(1))
+    return kernels
+
+
 def check_sass(flash_library: Path, int8_libraries: dict[str, Path]) -> None:
     """The tensor-core kernels run their products as warpgroup MMAs: each
     bf16 instantiation of ``flash_tc_kernel`` holds HGMMA instructions, and
     each GEMM instantiation of the int8 core (``int8_wgmma.cuh``
     ``gemm_kernel``) in each int8 kernel's library holds IGMMA, the SASS of
-    ``wgmma.mma_async ... .s32.s8.s8``."""
-    hgmma = {tuple(int(x) for x in re.findall(r"L[ib](\d+)E", name.split("flash_tc_kernel", 1)[1])[:3]):
-             body.count("HGMMA") for name, body in sass_functions(flash_library) if "flash_tc_kernel" in name}
-    log(f"SASS of {flash_library.name}: HGMMA per bf16 instantiation (head dim, masked, bf16 scores) {hgmma}")
+    ``wgmma.mma_async ... .s32.s8.s8``.
+
+    Each bf16 flash instantiation also holds the register reallocation
+    (USETMAXREG, the SASS of ``setmaxnreg``, once for the consumers and once
+    for the producer), spills nothing (ptxas's report), holds at launch the
+    registers that its setmaxnreg split assumes (fewer would leave the
+    consumers' ``setmaxnreg.inc`` waiting for ever, so this runs before any
+    launch), and ptxas neither ignores the setmaxnreg nor serialises the
+    wgmma."""
+    sass = {tc_instantiation(name): body for name, body in sass_functions(flash_library) if "flash_tc_kernel" in name}
+    hgmma = {key: body.count("HGMMA") for key, body in sass.items()}
+    setmaxreg = {key: body.count("USETMAXREG") for key, body in sass.items()}
+    log(f"SASS of {flash_library.name}: HGMMA per bf16 instantiation (head dim, masked, bf16 scores) {hgmma}; "
+        f"USETMAXREG {setmaxreg}")
     if len(hgmma) != 6 or not all(hgmma.values()):
         raise SystemExit("the bf16 flash instantiations do not all run wgmma (HGMMA)")
+    if not all(n >= 2 for n in setmaxreg.values()):
+        raise SystemExit("the bf16 flash instantiations do not all reallocate registers (USETMAXREG)")
+
+    report = ptxas_report("flash_attention")
+    ptxas = {tc_instantiation(name): info for name, info in ptxas_kernels(report).items() if "flash_tc_kernel" in name}
+    log(f"ptxas of flash_attention.cu, per bf16 instantiation: {ptxas}")
+    warned = [line.strip() for line in report.splitlines()
+              if "setmaxnreg" in line.lower() or "serializ" in line.lower()]
+    if warned:
+        raise SystemExit("ptxas ignored setmaxnreg or serialised wgmma in flash_attention.cu:\n" + "\n".join(warned))
+    if sorted(ptxas) != sorted(sass):
+        raise SystemExit(f"ptxas reported {sorted(ptxas)}, the SASS holds {sorted(sass)}")
+    for key, info in ptxas.items():
+        want = flash.tc_block(key[0])["launch_regs"]
+        if info.get("spill_stores") != 0 or info.get("spill_loads") != 0 or info.get("registers") != want:
+            raise SystemExit(f"flash_tc_kernel{key}: {info}; it must spill nothing and hold {want} registers "
+                             "at launch")
     for name, library in int8_libraries.items():
         igmma = {re.search(r"(StoreGeluQuant|StoreDequantI\w+?E)E", fn).group(1): body.count("IGMMA")
                  for fn, body in sass_functions(library) if "gemm_kernel" in fn}
@@ -625,17 +719,18 @@ def rates(flops: float, kernel_ms: float, library_ms: float, bound_ms: float) ->
             f"bound {flops / bound_ms / 1e9:.1f}")
 
 
-def time_bench_shape(peaks, kernel, plain) -> tuple[float, float, float, float, str]:
+def time_bench_shape(peaks, kernel, plain) -> tuple[float, float, float, float, str, str]:
     """Kernel, plain and ``scaled_dot_product_attention`` times at the
-    bench's (4, 22, 8192, 64) bf16 strided shape, and the bound."""
+    bench's (4, 22, 8192, 64) bf16 strided shape, and the bound (one ex2 a
+    score: B H T^2) with its terms."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     b, h, t, d = VITG_ATTN
     q, k, v = qkv(VITG_ATTN, torch.bfloat16, True, gen)
     kernel_ms = time_ms(lambda: kernel(q, k, v))
     plain_ms = time_ms(lambda: plain(q, k, v), iters=2, warmup=1)
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
-    bound_ms, bound_by = bound(VITG_FLOPS, 4 * b * h * t * d * 2, peaks["bfloat16"], peaks)
-    return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
+    bound_ms, bound_by, terms = flash_bound(VITG_FLOPS, 4 * b * h * t * d * 2, b * h * t * t, peaks)
+    return kernel_ms, plain_ms, library_ms, bound_ms, bound_by, terms
 
 
 def check_flash(peaks: dict[str, float]) -> dict:
@@ -666,12 +761,10 @@ def check_flash(peaks: dict[str, float]) -> dict:
         if shape == VITG_ATTN:
             main_err = err
 
-    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = time_bench_shape(
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by, terms = time_bench_shape(
         peaks, flash.flash_attention, flash.bounded_attention_plain)
-    b, h, t, d = VITG_ATTN
     log(f"flash_attention {VITG_ATTN} bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({VITG_FLOPS / 1e12:.3f} TFLOP, {4 * b * h * t * d * 2 / 1e6:.1f} MB; "
+        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({terms}; "
         f"{rates(VITG_FLOPS, kernel_ms, library_ms, bound_ms)})")
     return kernel_record("flash_attention", "flash_attention.cu",
                          "algonauts2025_tpu/ops/flash_attention.py:212 (_bounded_kernel)",
@@ -796,18 +889,20 @@ def check_flash_masked(peaks: dict[str, float], mutants: dict[str, Path]) -> dic
     b, h, t, d = LLAMA_ATTN
     q, k, v = masked_qkv(LLAMA_ATTN, LLAMA_KV, torch.bfloat16, gen)
     lens = torch.full((b,), t, dtype=torch.int32, device="cuda")
-    kernel_ms = time_ms(lambda: flash.flash_attention(q, k, v, causal=True, lengths=lens), iters=10)
+    # 50 calls: ~8 ms of work, so that a clock change in the run weighs little
+    kernel_ms = time_ms(lambda: flash.flash_attention(q, k, v, causal=True, lengths=lens), iters=50)
     plain_ms = time_ms(lambda: flash.flash_attention_plain(q, k, v, True, lens), iters=3, warmup=1)
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), iters=10)
+        q, k, v, is_causal=True, enable_gqa=True), iters=50)
     # the kept (query, key) pairs of this call: causal rows keep row + 1 keys
+    # (one ex2 a kept pair and head)
     pairs = sum(min(r + 1, n) for n in lens.tolist() for r in range(t))
     flops = 4 * d * h * pairs
     nbytes = 2 * (2 * b * h * t * d + 2 * b * LLAMA_KV * t * d)
-    bound_ms, bound_by = bound(flops, nbytes, peaks["bfloat16"], peaks)
+    bound_ms, bound_by, terms = flash_bound(flops, nbytes, h * pairs, peaks)
     log(f"flash_masked {LLAMA_ATTN} kv {LLAMA_KV} bf16 causal: kernel {kernel_ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; {rates(flops, kernel_ms, library_ms, bound_ms)})")
+        f"({terms}; {rates(flops, kernel_ms, library_ms, bound_ms)})")
     return kernel_record("flash_masked", "flash_attention.cu",
                          "algonauts2025_tpu/ops/flash_attention.py:26 (_flash_kernel)",
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
@@ -858,13 +953,13 @@ def check_fast(peaks: dict[str, float]) -> dict:
     if not (all_ok and ok and moved > limit):
         raise SystemExit("the fast flash kernel disagrees with its plain version, or ignores score_dtype")
 
-    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = time_bench_shape(
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by, terms = time_bench_shape(
         peaks, flash.fast_flash_attention, flash.fast_attention_plain)
     q, k, v = qkv(VITG_ATTN, torch.bfloat16, True, gen)
     b16_ms = time_ms(lambda: flash.fast_flash_attention(q, k, v, torch.bfloat16))
     log(f"flash_fast {VITG_ATTN} bf16: kernel {kernel_ms:.4f} ms (bf16 scores {b16_ms:.4f} ms, "
         f"{VITG_FLOPS / b16_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms; {rates(VITG_FLOPS, kernel_ms, library_ms, bound_ms)}")
+        f"bound {bound_ms:.4f} ms ({terms}); {rates(VITG_FLOPS, kernel_ms, library_ms, bound_ms)}")
     return kernel_record("flash_fast", "flash_attention.cu",
                          "algonauts2025_tpu/ops/flash_attention.py:105 (_fast_kernel)",
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
@@ -908,10 +1003,11 @@ def check_packed(peaks: dict[str, float]) -> dict:
     if not (all_ok and refused == 2):
         raise SystemExit("the packed flash kernel disagrees with its plain version, or takes a bad shape")
 
-    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = time_bench_shape(
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by, terms = time_bench_shape(
         peaks, flash.flash_attention_packed, flash.packed_attention_plain)
     log(f"flash_packed {VITG_ATTN} bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms; {rates(VITG_FLOPS, kernel_ms, library_ms, bound_ms)}")
+        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({terms}); "
+        f"{rates(VITG_FLOPS, kernel_ms, library_ms, bound_ms)}")
     return kernel_record("flash_packed", "flash_attention.cu",
                          "algonauts2025_tpu/ops/flash_attention.py:424 (_flash_kernel_packed)",
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
@@ -2669,7 +2765,7 @@ def main() -> None:
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
         }}), flush=True)
         return
-    peaks = peaks_for(kind)
+    peaks = {**peaks_for(kind), "exp": mufu_rate()}
     torch.manual_seed(SEED)
     mutants = build_kernels()
     check_sass(_cuda.build("flash_attention"), {name: _cuda.build(name) for name in INT8_GEMMS})

@@ -9,6 +9,7 @@ here too: the TMA layout contract of the bf16 kernel against the layouts
 of its callers, and the source lines chip_smoke.py's mutants patch.
 """
 
+import re
 from unittest import mock
 
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ from algonauts2025_tpu.ops.flash_attention import flash_attention as jax_flash
 from algonauts2025_tpu_torch.models.backbones import llama, vjepa2
 from algonauts2025_tpu_torch.ops import _cuda
 from algonauts2025_tpu_torch.ops import flash_attention as tf
+from algonauts2025_tpu_torch.scripts import flash_levers
 from algonauts2025_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -253,3 +255,99 @@ def test_mutant_line_occurs_once_in_the_source(mutant):
     source; the line must be there exactly once, or the build fails."""
     line, _ = chip_smoke.MUTANTS[mutant]
     assert (_cuda.CSRC / "flash_attention.cu").read_text().count(line) == 1
+
+
+#: every bf16 instantiation of flash_tc_kernel: (head dim it runs at, masked,
+#: bf16 scores), as launch_typed instantiates them
+TC_INSTANTIATIONS = [(d, masked, b16) for d in (64, 128) for masked, b16 in ((0, 0), (0, 1), (1, 0))]
+
+
+@pytest.mark.parametrize("head_dim,masked,bf16_scores", TC_INSTANTIATIONS)
+def test_tc_block_fits_shared_memory(head_dim, masked, bf16_scores):
+    """The q tile, the K/V ring, the mbarriers and the alignment slack fit
+    the 227 KB a block may use; the tiles start on the 1024-byte boundaries
+    of the 128-byte swizzle, and TMA's q box (one row per query) is at most
+    256 rows."""
+    block = tf.tc_block(head_dim, bool(masked))
+    assert block["smem_bytes"] <= tf.SM90_MAX_SMEM
+    assert block["rows"] == 64 * block["warpgroups"] <= 256
+    assert block["rows"] * 128 % 1024 == 0 and 128 * head_dim * 2 % 1024 == 0
+
+
+@pytest.mark.parametrize("head_dim,masked,bf16_scores", TC_INSTANTIATIONS)
+def test_tc_block_register_budget(head_dim, masked, bf16_scores):
+    """The setmaxnreg split (consumers x 128 x their registers + 128 x the
+    producer's) fits the 65,536 registers of an SM and the registers the
+    block holds at launch; each count is one setmaxnreg takes."""
+    block = tf.tc_block(head_dim, bool(masked))
+    split = 128 * block["warpgroups"] * block["consumer_regs"] + 128 * block["producer_regs"]
+    assert split <= tf.SM90_REGISTERS
+    assert split <= block["threads"] * block["launch_regs"]
+    assert block["threads"] == 128 * (block["warpgroups"] + 1)
+    for regs in (block["consumer_regs"], block["producer_regs"]):
+        assert 24 <= regs <= 256 and regs % 8 == 0
+    assert block["producer_regs"] <= block["launch_regs"] <= block["consumer_regs"]
+
+
+def test_tc_block_mirrors_the_kernel_source():
+    """``tc_block`` is the Python mirror of ``tc::Block`` in the source: the
+    per-head-dim constants and the q slots agree."""
+    source = (_cuda.CSRC / "flash_attention.cu").read_text()
+    found = {name: (int(a), int(b)) for name, a, b in
+             re.findall(r"static constexpr int (k\w+) = kD == 64 \? (\d+) : (\d+);", source)}
+    keys = {"kWarpgroups": "warpgroups", "kStages": "stages", "kConsumerRegs": "consumer_regs",
+            "kProducerRegs": "producer_regs"}
+    assert set(found) == set(keys)
+    for name, key in keys.items():
+        assert (tf.tc_block(64)[key], tf.tc_block(128)[key]) == found[name]
+    slots = re.findall(r"static constexpr int kQSlots = (\d+);", source)
+    assert [int(n) for n in slots] == [tf.tc_block(64)["q_slots"]] == [tf.tc_block(128)["q_slots"]]
+
+
+@pytest.mark.parametrize("head_dim", [1, 32, 64, 65, 96, 128])
+def test_tc_block_runs_head_dims_at_64_or_128(head_dim):
+    assert tf.tc_block(head_dim)["head_dim"] == (64 if head_dim <= 64 else 128)
+
+
+@pytest.mark.parametrize("head_dim", [0, 129])
+def test_tc_block_refuses_head_dims_the_kernel_does_not_take(head_dim):
+    with pytest.raises(ValueError, match="head dims 1..128"):
+        tf.tc_block(head_dim)
+
+
+@pytest.mark.parametrize("lever", sorted(flash_levers.LEVERS))
+def test_lever_registers_follow_its_block(lever):
+    """scripts/flash_levers.py launches a lever's build only if ptxas gave
+    it the registers its setmaxnreg split assumes: tc_block's, or, for a
+    lever with other warpgroups at d = 64, those of that block."""
+    regs = flash_levers._launch_regs(lever)
+    assert regs[128] == tf.tc_block(128)["launch_regs"] == 168
+    warpgroups = flash_levers.LEVERS[lever][1]
+    assert regs[64] == (tf.tc_block(64)["launch_regs"] if warpgroups is None else
+                        tf.tc_launch_regs(128 * (warpgroups + 1)))
+
+
+def test_levers_leave_out_what_the_source_lacks(tmp_path):
+    """A lever whose lines the source no longer holds is left out rather
+    than failing the run; a baseline source is built as it is."""
+    source = (_cuda.CSRC / "flash_attention.cu").read_text()
+    lever = "items in plain rounds (block i takes items i, i + gridDim.x, ...)"
+    (old, new), = flash_levers.LEVERS[lever][0]
+    (tmp_path / "flash_attention.cu").write_text(source.replace(old, new))
+    baseline = tmp_path / "parent.cu"
+    baseline.write_text("// another version\n")
+    with mock.patch.object(flash_levers._cuda, "CSRC", tmp_path):
+        texts = flash_levers._sources({"parent": baseline})
+    assert set(texts) == set(flash_levers.LEVERS) - {lever} | {"parent"}
+    assert texts["parent"] == "// another version\n"
+    assert texts["as built"] == (tmp_path / "flash_attention.cu").read_text()
+
+
+@pytest.mark.parametrize("spec", ["parent", "={source}", "parent={missing}", "as built={source}"])
+def test_levers_refuse_a_bad_baseline(spec, tmp_path):
+    """--baseline takes NAME=PATH of an existing file, under a name that is
+    not a lever's; the check comes before any build."""
+    (tmp_path / "a.cu").write_text("// another version\n")
+    spec = spec.format(source=tmp_path / "a.cu", missing=tmp_path / "missing.cu")
+    with pytest.raises(SystemExit, match="--baseline takes NAME=PATH"):
+        flash_levers.main(["--baseline", spec])
