@@ -10,29 +10,36 @@
 // matrices (8.65 MB each at ViT-G) in VMEM next to a (256, 1408) int32
 // accumulator that lived across the F chunks.  On an H100 a 64-row slice of
 // that accumulator alone is 360 KB, above the 227 KB of shared memory.  So
-// the MLP is three launches, two of them on the tensor-core GEMM core of
-// int8_wgmma.cuh (wgmma s8.s8 -> s32, TMA, a ring of stages on mbarriers):
+// the MLP is three launches, two of them on the persistent, warp-specialised
+// tensor-core GEMM core of int8_wgmma.cuh (wgmma s8.s8 -> s32, TMA loads
+// and stores, a ring of stages on mbarriers, setmaxnreg):
 //   1. quantize x by sx into an int8 (M, K) scratch (0.14 GB of traffic at
 //      ViT-G, ~0.05 ms): TMA then feeds fc1 from int8 rows, half the bytes
 //      of bf16 ones, and the conversion leaves fc1's consumer warps;
-//   2. fc1 with an epilogue that dequantizes, adds b1, applies the gelu and
-//      requantizes by h_scale, writing int8 (M, F) to a second scratch (201
-//      MB at M = 32768, F = 6144);
-//   3. fc2 over that int8 scratch, dequantized by h_scale * w2_scale + b2.
+//   2. fc1 on the PingPongPairs schedule, with an epilogue that dequantizes,
+//      adds b1, applies the gelu and requantizes by h_scale, writing int8
+//      (M, F) to a second scratch (201 MB at M = 32768, F = 6144): two
+//      teams of two consumer warpgroups take 128 x 128 tiles in turns, so
+//      that one team's gelu runs while the other's products do;
+//   3. fc2 over that int8 scratch on the Cooperative schedule (128 x 256
+//      tiles: its K = 6144 makes it the GEMM that re-reads the most from
+//      L2), dequantized by h_scale * w2_scale + b2.
 // The weights come K-major, as (F, K) and (K, F) int8 copies of the JAX
 // layout's (K, F) and (F, K): wgmma reads an 8-bit B operand only K-major.
 // The int32 sums and the fp32 hidden activations never reach device memory;
 // the int8 hidden state does, once written and once read (0.4 GB, ~0.12 ms
 // at 3.35 TB/s).  The gelu uses expf (not __expf) and _rn intrinsics in the
-// order of the plain version; the remaining differences from PyTorch's exp
-// can flip rare int8 roundings of the hidden state.  Both scales arrive
+// order of the plain version (its reciprocal by __frcp_rn, which rounds
+// 1 / y as __fdiv_rn(1, y) does); the remaining differences from PyTorch's
+// exp can flip rare int8 roundings of the hidden state.  Both scales arrive
 // NaN-poisoned together from the wrapper.
 //
 // What bounds it on an H100: 2 * M * (K*F + F*K) = 1.13 TOP at ViT-G with a
-// window batch of 4, i.e. operations (0.57 ms at 1979 TOP/s).  The gelu
-// epilogue (a true division and an expf for each of the 201 M hidden
-// values) runs on the CUDA cores of the consumer warps; with two blocks an
-// SM it overlaps the other block's products.
+// window batch of 4, i.e. operations (0.57 ms at 1979 TOP/s).  After them
+// comes fc1's epilogue: a reciprocal, an expf and a true division among ~60
+// instructions for each of the 201 M hidden values, ~0.4 ms of issue on the
+// CUDA cores at one instruction a cycle a scheduler; the PingPongPairs
+// schedule overlaps it with the products.
 
 #include <math.h>
 
@@ -40,11 +47,12 @@
 
 namespace {
 
-// _gelu_erf_approx of ops/quant.py, operation by operation
+// _gelu_erf_approx of ops/quant.py, operation by operation (its reciprocal
+// by __frcp_rn, which rounds 1 / y as __fdiv_rn(1, y) does)
 __device__ __forceinline__ float gelu_as(float x) {
   const float z = __fmul_rn(x, 0.7071067811865476f);
   const float a = fabsf(z);
-  const float t = __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(0.3275911f, a)));
+  const float t = __frcp_rn(__fadd_rn(1.f, __fmul_rn(0.3275911f, a)));
   float p = __fadd_rn(-1.453152027f, __fmul_rn(t, 1.061405429f));
   p = __fadd_rn(1.421413741f, __fmul_rn(t, p));
   p = __fadd_rn(-0.284496736f, __fmul_rn(t, p));
@@ -56,17 +64,17 @@ __device__ __forceinline__ float gelu_as(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, erf));
 }
 
-// fc1 epilogue: dequant by scales[0] (sx), + b1, gelu, requant by scales[1] (sh)
+// fc1 epilogue: dequant by scales[0] (sx), + b1, gelu, requant by scales[1]
+// (sh), two int8 columns at a time
 struct StoreGeluQuant {
+  using Out = int8_t;
+  using Pair = uint16_t;
   float sx, sh;
   __device__ explicit StoreGeluQuant(const float* scales) : sx(scales[0]), sh(scales[1]) {}
-  __device__ __forceinline__ void store(void* out, int N, int m, int n, int acc0, int acc1, float2 ws,
-                                        float2 bias) const {
-    const float h0 = gelu_as(i8wg::dequant(acc0, sx, ws.x, bias.x));
-    const float h1 = gelu_as(i8wg::dequant(acc1, sx, ws.y, bias.y));
-    const char2 q = make_char2(static_cast<signed char>(i8wg::quantize(h0, sh)),
-                               static_cast<signed char>(i8wg::quantize(h1, sh)));
-    *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + (long long)m * N + n) = q;
+  __device__ __forceinline__ uint16_t pair(int acc0, int acc1, float2 ws, float2 bias) const {
+    const int q0 = i8wg::quantize(gelu_as(i8wg::dequant(acc0, sx, ws.x, bias.x)), sh);
+    const int q1 = i8wg::quantize(gelu_as(i8wg::dequant(acc1, sx, ws.y, bias.y)), sh);
+    return static_cast<uint16_t>((q0 & 0xff) | (q1 & 0xff) << 8);
   }
 };
 
@@ -94,13 +102,15 @@ int int8_mlp_forward(const void* x, int x_dtype, const int8_t* w1_t, const float
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != 0) return err;
-  err = i8wg::gemm<StoreGeluQuant>(xq, w1_t, h, w1_scale, b1, scales, M, F, K, s);
+  err = i8wg::gemm<StoreGeluQuant, i8wg::PingPongPairs>(xq, w1_t, h, w1_scale, b1, scales, M, F, K, s);
   if (err != 0) return err;
   // fc2: dequant by scales[1] (sh), + b2, in the output dtype
   if (out_dtype == 0)
-    return i8wg::gemm<i8wg::StoreDequant<float, 1>>(h, w2_t, out, w2_scale, b2, scales, M, K, F, s);
+    return i8wg::gemm<i8wg::StoreDequant<float, 1>, i8wg::Cooperative>(h, w2_t, out, w2_scale, b2, scales, M,
+                                                                         K, F, s);
   if (out_dtype == 1)
-    return i8wg::gemm<i8wg::StoreDequant<__nv_bfloat16, 1>>(h, w2_t, out, w2_scale, b2, scales, M, K, F, s);
+    return i8wg::gemm<i8wg::StoreDequant<__nv_bfloat16, 1>, i8wg::Cooperative>(h, w2_t, out, w2_scale, b2,
+                                                                                 scales, M, K, F, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

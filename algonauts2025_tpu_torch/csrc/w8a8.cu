@@ -15,16 +15,20 @@
 //
 // Why the TPU design does not carry over: the TPU kernel quantizes each
 // (bm, bk) block of x in registers, once only because its block spans the
-// whole N (1408).  Here a block's accumulator holds 128 of the 1408 columns,
+// whole N (1408).  Here a tile's accumulator holds 128 of the 1408 columns,
 // so quantizing inside the GEMM would redo each element 11 times.  The call
-// is two launches on the tensor-core core of int8_wgmma.cuh instead:
+// is two launches on the persistent, warp-specialised tensor-core core of
+// int8_wgmma.cuh instead:
 //   1. quantize x by sx into an int8 (M, K) scratch (92 MB read and 46 MB
 //      written at ViT-G, ~0.05 ms), which TMA then feeds to the GEMM at
 //      half the bytes of bf16 rows;
 //   2. the wgmma s8.s8 -> s32 GEMM over the scratch and the K-major weight
-//      (N, K) (wgmma reads an 8-bit B operand only K-major), in 128 x 128
-//      tiles of 11 stages each at K = 1408, with the StoreDequant epilogue
-//      reading sx (scales[0]).
+//      (N, K) (wgmma reads an 8-bit B operand only K-major) on the PingPong
+//      schedule, 128 x 128 tiles of 11 stages each at K = 1408, one
+//      consumer warpgroup's epilogue (StoreDequant reading sx, scales[0];
+//      TMA stores) under the other's products.  Its 128 x 256 tiles on the
+//      Cooperative schedule re-read a quarter fewer bytes from L2 but wait
+//      for their epilogues and compute 1536 columns for 1408: slower (PERF.md).
 // The two launches move ~0.28 GB at ViT-G (0.083 ms at 3.35 TB/s), just
 // above the operations' bound.  K and N must be multiples of 128.
 
@@ -53,8 +57,10 @@ int w8a8_forward(const void* x, int x_dtype, const int8_t* w_t, const float* w_s
   if (err != 0) return err;
   // dequant by scales[0] (sx), + bias, in the output dtype
   if (out_dtype == 0)
-    return i8wg::gemm<i8wg::StoreDequant<float, 0>>(xq, w_t, out, w_scale, bias, sx, M, N, K, s);
-  return i8wg::gemm<i8wg::StoreDequant<__nv_bfloat16, 0>>(xq, w_t, out, w_scale, bias, sx, M, N, K, s);
+    return i8wg::gemm<i8wg::StoreDequant<float, 0>, i8wg::PingPong>(xq, w_t, out, w_scale, bias, sx, M, N,
+                                                                         K, s);
+  return i8wg::gemm<i8wg::StoreDequant<__nv_bfloat16, 0>, i8wg::PingPong>(xq, w_t, out, w_scale, bias,
+                                                                                 sx, M, N, K, s);
 }
 
 }  // extern "C"

@@ -38,6 +38,9 @@ __all__ = [
     "quantize_tree",
     "quantize_dense_params",
     "calibrate_quant_scales",
+    "gemm_block",
+    "gemm_l2_read_bytes",
+    "INT8_GEMMS",
     "launch_counts",
 ]
 
@@ -56,6 +59,55 @@ _INT8_MLP = ("int8_mlp", "int8_mlp_forward", (
 #: the fused kernels' K and N (F) must be multiples of this (the JAX
 #: wrappers' rule, and the int8 core's 128-deep stages and 128-wide tiles)
 _ALIGN = 128
+
+#: the int8 core's schedules (csrc/int8_wgmma.cuh ``Schedule``): consumer
+#: warpgroups, warpgroups a team (a team takes a tile; two teams take turns),
+#: tile columns, ring stages, and the registers setmaxnreg gives a consumer
+#: thread
+_SCHEDULES = {"Cooperative": (2, 2, 256, 4, 240), "PingPong": (2, 1, 128, 6, 240),
+              "PingPongPairs": (4, 2, 128, 5, 112)}
+#: the schedule of each GEMM of the two int8 kernels, as w8a8.cu and
+#: int8_mlp.cu instantiate them: row 6's GEMM, and fc1 and fc2 of row 7
+INT8_GEMMS = {"w8a8": "PingPong", "fc1": "PingPongPairs", "fc2": "Cooperative"}
+#: the core's tile rows, stage depth, the registers setmaxnreg leaves a
+#: producer thread, and the bytes of one staged piece of the output (64 rows
+#: x 128 bytes)
+_BM, _BK, _PRODUCER_REGS, _PIECE_BYTES = 128, 128, 24, 64 * 128
+
+
+def gemm_block(gemm: str) -> dict[str, tp.Any]:
+    """The block the int8 core launches for ``gemm`` ("w8a8", "fc1" or
+    "fc2"): a pure function mirroring ``i8wg::Schedule`` and ``i8wg::Layout``
+    of its schedule.
+
+    ``smem_bytes`` counts the A and Bt rings, two staged output pieces a
+    consumer warpgroup, the full and empty mbarrier of each stage and the
+    slack that aligns the base to 1024 bytes; ``acc_regs`` are a consumer
+    thread's int32 accumulators; ``launch_regs`` is what
+    ``__launch_bounds__(threads, 1)`` gives a thread, which the setmaxnreg
+    split must not exceed."""
+    from .flash_attention import tc_launch_regs
+
+    schedule = INT8_GEMMS[gemm]
+    warpgroups, team, bn, stages, consumer_regs = _SCHEDULES[schedule]
+    threads = 128 * (warpgroups + 1)
+    rows = _BM // team
+    return {
+        "schedule": schedule, "tile_m": _BM, "tile_n": bn, "stage_k": _BK, "stages": stages,
+        "warpgroups": warpgroups, "team": team, "rows": rows, "acc_regs": rows // 64 * bn // 2,
+        "threads": threads, "staging_bytes": warpgroups * 2 * _PIECE_BYTES,
+        "smem_bytes": stages * (_BM + bn) * _BK + warpgroups * 2 * _PIECE_BYTES + 16 * stages + 1024,
+        "consumer_regs": consumer_regs, "producer_regs": _PRODUCER_REGS,
+        "launch_regs": tc_launch_regs(threads),
+    }
+
+
+def gemm_l2_read_bytes(m: int, n: int, k: int, tile_m: int, tile_n: int) -> int:
+    """The bytes an int8 (m, k) x (k, n) GEMM in tile_m x tile_n tiles reads
+    from L2: every tile reads its A row panel and its B column panel once
+    (a tile past n reads no B beyond it), so A's bytes n / tile_n times and
+    B's m / tile_m times, rounded up."""
+    return m * k * -(-n // tile_n) + n * k * -(-m // tile_m)
 
 
 def _static_scale(s, poison_if: torch.Tensor | None = None) -> torch.Tensor:

@@ -21,10 +21,14 @@ Phases (any failure exits non-zero):
    cores: each fp32 edge case has a bf16 twin, and the SASS of every bf16
    instantiation must hold ``HGMMA`` and the register reallocation
    (``USETMAXREG``), with no spills and no serialised wgmma in ptxas's
-   report (before any launch), that of every GEMM of the two int8
-   kernels ``IGMMA``; the w8a8 kernel must refuse an unaligned K without
-   a launch.  The flash rows' bounds count their exponentials at the
-   MUFU's rate beside the operations and the bytes.  Two mutants of the masked flash
+   report (before any launch); that of every GEMM of the two int8
+   kernels ``IGMMA`` and ``USETMAXREG``, with no spills, the launch
+   registers of ``quant.gemm_block`` and the schedule ``quant.INT8_GEMMS``
+   names; the w8a8 kernel must refuse an unaligned K without a launch.  The
+   int8 kernels' quantize passes and GEMMs are timed apart under
+   ``torch.profiler``, beside the bytes their tiles read from L2.  The
+   flash rows' bounds count their exponentials at the MUFU's rate beside
+   the operations and the bytes.  Two mutants of the masked flash
    kernel, built from patched copies of its source under
    ``_build/mutants`` (one ignores the key lengths, one ignores
    ``causal``), must fail the same check.  The bench-only fast
@@ -339,10 +343,20 @@ def sass_functions(library: Path) -> list[tuple[str, str]]:
     return [tuple(f.split(None, 1)) for f in re.split(r"\n\s*Function : ", sass)[1:]]
 
 
-#: the GEMM instantiations of the int8 core in each int8 kernel's library:
-#: one per epilogue (w8a8: dequant by sx to fp32 and bf16; the MLP: fc1's
-#: gelu/requant, fc2's dequant by sh to fp32 and bf16)
-INT8_GEMMS = {"w8a8": 2, "int8_mlp": 3}
+#: the GEMM instantiations of the int8 core in each int8 kernel's library,
+#: one per epilogue (as mangled; w8a8: dequant by sx to fp32 and bf16; the
+#: MLP: fc1's gelu/requant, fc2's dequant by sh to fp32 and bf16), and the
+#: GEMM of ``quant.INT8_GEMMS`` each serves, which gives its schedule
+INT8_GEMMS = {
+    "w8a8": {"StoreDequantIfLi0EE": "w8a8", "StoreDequantI13__nv_bfloat16Li0EE": "w8a8"},
+    "int8_mlp": {"StoreGeluQuant": "fc1", "StoreDequantIfLi1EE": "fc2", "StoreDequantI13__nv_bfloat16Li1EE": "fc2"},
+}
+
+
+def int8_instantiation(name: str) -> tuple[str, str]:
+    """(epilogue, schedule) of a mangled ``gemm_kernel`` name of the int8 core."""
+    epilogue = re.search(r"(StoreGeluQuant|StoreDequantI\w+?Li\dEE)", name).group(1)
+    return epilogue, re.search(r"(Cooperative|PingPongPairs|PingPong)", name).group(1)
 
 
 def tc_instantiation(name: str) -> tuple[int, ...]:
@@ -389,7 +403,9 @@ def check_sass(flash_library: Path, int8_libraries: dict[str, Path]) -> None:
     registers that its setmaxnreg split assumes (fewer would leave the
     consumers' ``setmaxnreg.inc`` waiting for ever, so this runs before any
     launch), and ptxas neither ignores the setmaxnreg nor serialises the
-    wgmma."""
+    wgmma.  So does each int8 GEMM instantiation, whose schedule is the one
+    ``quant.INT8_GEMMS`` names for its GEMM and whose launch registers are
+    ``quant.gemm_block``'s."""
     sass = {tc_instantiation(name): body for name, body in sass_functions(flash_library) if "flash_tc_kernel" in name}
     hgmma = {key: body.count("HGMMA") for key, body in sass.items()}
     setmaxreg = {key: body.count("USETMAXREG") for key, body in sass.items()}
@@ -415,11 +431,31 @@ def check_sass(flash_library: Path, int8_libraries: dict[str, Path]) -> None:
             raise SystemExit(f"flash_tc_kernel{key}: {info}; it must spill nothing and hold {want} registers "
                              "at launch")
     for name, library in int8_libraries.items():
-        igmma = {re.search(r"(StoreGeluQuant|StoreDequantI\w+?E)E", fn).group(1): body.count("IGMMA")
-                 for fn, body in sass_functions(library) if "gemm_kernel" in fn}
-        log(f"SASS of {library.name}: IGMMA per int8 GEMM instantiation (epilogue) {igmma}")
-        if len(igmma) != INT8_GEMMS[name] or not all(igmma.values()):
-            raise SystemExit(f"the int8 GEMM instantiations of {name} do not all run wgmma (IGMMA)")
+        sass = {int8_instantiation(fn): body for fn, body in sass_functions(library) if "gemm_kernel" in fn}
+        igmma = {key: body.count("IGMMA") for key, body in sass.items()}
+        setmaxreg = {key: body.count("USETMAXREG") for key, body in sass.items()}
+        log(f"SASS of {library.name}: IGMMA per int8 GEMM instantiation (epilogue, schedule) {igmma}; "
+            f"USETMAXREG {setmaxreg}")
+        want = {(epilogue, quant.INT8_GEMMS[gemm]) for epilogue, gemm in INT8_GEMMS[name].items()}
+        if set(sass) != want or not all(igmma.values()):
+            raise SystemExit(f"the int8 GEMM instantiations of {name} are {sorted(sass)}, not {sorted(want)}, "
+                             "or do not all run wgmma (IGMMA)")
+        if not all(n >= 2 for n in setmaxreg.values()):
+            raise SystemExit(f"the int8 GEMM instantiations of {name} do not all reallocate registers (USETMAXREG)")
+        report = ptxas_report(name)
+        ptxas = {int8_instantiation(fn): info for fn, info in ptxas_kernels(report).items() if "gemm_kernel" in fn}
+        log(f"ptxas of {name}.cu, per int8 GEMM instantiation: {ptxas}")
+        warned = [line.strip() for line in report.splitlines()
+                  if "setmaxnreg" in line.lower() or "serializ" in line.lower()]
+        if warned:
+            raise SystemExit(f"ptxas ignored setmaxnreg or serialised wgmma in {name}.cu:\n" + "\n".join(warned))
+        if set(ptxas) != want:
+            raise SystemExit(f"ptxas reported {sorted(ptxas)} in {name}.cu, the SASS holds {sorted(want)}")
+        for key, info in ptxas.items():
+            regs = quant.gemm_block(INT8_GEMMS[name][key[0]])["launch_regs"]
+            if info.get("spill_stores") != 0 or info.get("spill_loads") != 0 or info.get("registers") != regs:
+                raise SystemExit(f"gemm_kernel{key} of {name}.cu: {info}; it must spill nothing and hold {regs} "
+                                 "registers at launch")
 
 
 def qkv(shape, dtype, strided: bool, gen: torch.Generator, device="cuda"):
@@ -588,7 +624,10 @@ def check_w8a8(peaks: dict[str, float]) -> dict:
         f"({ops / 1e9:.1f} GOP, {nbytes / 1e6:.1f} MB)")
     xq = torch.clamp(torch.round(x.float() / sxs), -127, 127).to(torch.int8)
     time_int_mm("w8a8", xq, {"(K, N) row-major": w_q, "K-major copy as (K, N)": w_t.t()})
-    profile_run("w8a8 x 10 at ViT-G", lambda: [kernel() for _ in range(10)], 10 * kernel_ms, top=4)
+    parts = int8_parts(profile_run("w8a8 x 10 at ViT-G", lambda: [kernel() for _ in range(10)], 10 * kernel_ms,
+                                   top=4), 10, {"quantize": "quantize_kernel", "GEMM": "gemm_kernel"})
+    log(f"w8a8 ({m}, {k}, {n}) a call under the profiler: quantize pass {parts['quantize']:.4f} ms, GEMM "
+        f"{parts['GEMM']:.4f} ms ({ops / parts['GEMM'] / 1e9:.1f} TOP/s); " + l2_line("w8a8", m, n, k, nbytes))
     return kernel_record("w8a8", "w8a8.cu", "algonauts2025_tpu/ops/quant.py:107 (_fused_w8a8_kernel)",
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
 
@@ -619,6 +658,23 @@ def time_int_mm(label: str, a: torch.Tensor, weights: dict[str, torch.Tensor]) -
     times = {layout: time_ms(lambda: torch._int_mm(a, w), iters=10) for layout, w in weights.items()}
     log(f"torch._int_mm alone, {label} ({tuple(a.shape)} x {tuple(next(iter(weights.values())).shape)}): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+
+
+def int8_parts(kernels: list[tuple[str, float, int]], calls: int, names: dict[str, str]) -> dict[str, float]:
+    """ms a call of each part of an int8 kernel, from ``profile_run``'s
+    kernels over ``calls`` calls: ``names`` maps a part to a piece of its
+    kernel's name (the quantize pass, a GEMM by its epilogue)."""
+    return {part: sum(ms for key, ms, _ in kernels if piece in key) / calls for part, piece in names.items()}
+
+
+def l2_line(gemm: str, m: int, n: int, k: int, nbytes: float) -> str:
+    """The bytes ``gemm`` reads from L2 in its tiles, beside 128 x 128 tiles'
+    and the bound's device-memory bytes."""
+    block = quant.gemm_block(gemm)
+    l2 = quant.gemm_l2_read_bytes(m, n, k, block["tile_m"], block["tile_n"])
+    return (f"{gemm} L2 read bytes in {block['tile_m']} x {block['tile_n']} tiles ({block['schedule']}) "
+            f"{l2 / 1e9:.3f} GB (128 x 128 tiles: {quant.gemm_l2_read_bytes(m, n, k, 128, 128) / 1e9:.3f} GB; "
+            f"the bound counts {nbytes / 1e6:.1f} MB of device memory)")
 
 
 def check_int8_mlp(peaks: dict[str, float]) -> dict:
@@ -675,6 +731,15 @@ def check_int8_mlp(peaks: dict[str, float]) -> dict:
         f"plain {plain_ms:.4f} ms, _int_mm + quant/gelu passes {library_ms:.4f} ms "
         f"({ops / library_ms / 1e9:.1f} TOP/s), bound {bound_ms:.4f} ms "
         f"({ops / 1e12:.3f} TOP, {nbytes / 1e6:.1f} MB)")
+    parts = int8_parts(profile_run("int8_mlp x 10 at ViT-G",
+                                   lambda: [quant.int8_mlp_fused(*args, sx, sh, **km) for _ in range(10)],
+                                   10 * kernel_ms, top=4), 10,
+                       {"quantize": "quantize_kernel", "fc1": "StoreGeluQuant", "fc2": "StoreDequant"})
+    gemm_ops = 2 * m * k * f
+    log(f"int8_mlp ({m}, {k}, {f}) a call under the profiler: quantize pass {parts['quantize']:.4f} ms, "
+        f"fc1 {parts['fc1']:.4f} ms ({gemm_ops / parts['fc1'] / 1e9:.1f} TOP/s), fc2 {parts['fc2']:.4f} ms "
+        f"({gemm_ops / parts['fc2'] / 1e9:.1f} TOP/s), fc1 / fc2 {parts['fc1'] / parts['fc2']:.3f}; "
+        + l2_line("fc1", m, f, k, nbytes) + "; " + l2_line("fc2", m, k, f, nbytes))
     xq = torch.clamp(torch.round(x.float() / sc[0]), -127, 127).to(torch.int8)
     hq = torch.randint(-127, 128, (m, f), generator=gen, device="cuda", dtype=torch.int8)
     time_int_mm("fc1", xq, {"(K, N) row-major": w1_q, "K-major copy as (K, N)": km["w1_kmajor"].t()})
@@ -1214,8 +1279,12 @@ def video_path(n_windows: int = 10, window_batch: int = 4) -> dict:
         raise SystemExit(f"aggregate_layers gave {trunk_input.shape} or non-finite values")
     if launches != expected:
         raise SystemExit("the video path did not launch the kernels as expected")
-    profile_run(f"one ViT-G window batch of {window_batch}", lambda: encode(np.stack(windows[:window_batch])),
-                statistics.mean(batch_s[1:]) * 1e3, top=12)
+    kernels = profile_run(f"one ViT-G window batch of {window_batch}",
+                          lambda: encode(np.stack(windows[:window_batch])), statistics.mean(batch_s[1:]) * 1e3, top=12)
+    parts = int8_parts(kernels, 1, {"quantize passes": "quantize_kernel", "row 6 GEMM": "StoreDequant<__nv_bfloat16, 0>",
+                                    "fc1": "StoreGeluQuant", "fc2": "StoreDequant<__nv_bfloat16, 1>"})
+    log("int8 kernels of the window batch under the profiler: "
+        + ", ".join(f"{part} {ms:.3f} ms" for part, ms in parts.items()))
 
     # the first batch again through the plain versions: cosine and relative
     # L2 of each window's token-pooled feature vector, layer by layer
@@ -1438,10 +1507,11 @@ def w2v_flops(cfg: Wav2VecBertConfig, t: int) -> float:
     return 2 * t * cfg.input_dim * h + cfg.num_layers * layer
 
 
-def profile_run(label: str, run, unprofiled_ms: float, top: int = 10) -> None:
+def profile_run(label: str, run, unprofiled_ms: float, top: int = 10) -> list[tuple[str, float, int]]:
     """``run()`` again under ``torch.profiler``: the device time of its
     kernels by name, and their sum against the same work's unprofiled host
-    time (the device-busy share; the rest is the device's idle share)."""
+    time (the device-busy share; the rest is the device's idle share).
+    Returns (name, device ms in all, launches) of every kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1455,6 +1525,7 @@ def profile_run(label: str, run, unprofiled_ms: float, top: int = 10) -> None:
         f"{unprofiled_ms:.3f} ms; top kernels by device time:")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+    return [(e.key, e.self_device_time_total / 1e3, e.count) for e in kernels]
 
 
 @torch.no_grad()

@@ -333,3 +333,104 @@ def test_int8_mlp_fused_plain_with_kmajor_matches_pallas(rng):
     rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
     assert rel <= 1e-3, rel
     assert np.abs(got - ref).max() <= 1e-2 * np.abs(ref).max()
+
+
+# ---- the int8 GEMM core's block (csrc/int8_wgmma.cuh) and its fast epilogue ----
+
+_CORE = (_cuda.CSRC / "int8_wgmma.cuh").read_text()
+
+
+@pytest.mark.parametrize("gemm", sorted(tq.INT8_GEMMS))
+def test_gemm_block_fits_shared_memory(gemm):
+    """The A and Bt rings, the two staged output pieces of each consumer
+    warpgroup, the mbarriers and the alignment slack fit the 227 KB a block
+    may use; every ring slot and output piece starts on a 1024-byte boundary
+    of the 128-byte swizzle, and TMA's boxes are at most 256 rows."""
+    from algonauts2025_tpu_torch.ops.flash_attention import SM90_MAX_SMEM
+
+    block = tq.gemm_block(gemm)
+    assert block["smem_bytes"] <= SM90_MAX_SMEM
+    assert block["tile_m"] * block["stage_k"] % 1024 == 0 and block["tile_n"] * block["stage_k"] % 1024 == 0
+    assert block["staging_bytes"] % 1024 == 0 and max(block["tile_m"], block["tile_n"]) <= 256
+    assert block["stage_k"] == 128 and block["tile_n"] % 128 == 0
+
+
+@pytest.mark.parametrize("gemm", sorted(tq.INT8_GEMMS))
+def test_gemm_block_register_budget(gemm):
+    """The setmaxnreg split (consumer warpgroups x 128 x their registers +
+    128 x the producer's) fits the 65,536 registers of an SM and the
+    registers the block holds at launch; a consumer thread holds the int32
+    accumulators of its rows of a tile with 48 registers or more to spare for
+    the epilogue; each count is one setmaxnreg takes."""
+    from algonauts2025_tpu_torch.ops.flash_attention import SM90_REGISTERS
+
+    block = tq.gemm_block(gemm)
+    split = 128 * block["warpgroups"] * block["consumer_regs"] + 128 * block["producer_regs"]
+    assert split <= SM90_REGISTERS and split <= block["threads"] * block["launch_regs"]
+    assert block["threads"] == 128 * (block["warpgroups"] + 1)
+    for regs in (block["consumer_regs"], block["producer_regs"]):
+        assert 24 <= regs <= 256 and regs % 8 == 0
+    assert block["producer_regs"] <= block["launch_regs"] <= block["consumer_regs"]
+    assert block["rows"] * block["tile_n"] // 128 == block["acc_regs"] <= block["consumer_regs"] - 48
+    assert block["warpgroups"] // block["team"] in (1, 2) and block["rows"] in (64, 128)
+
+
+def test_gemm_block_mirrors_the_kernel_source():
+    """``gemm_block`` is the Python mirror of ``i8wg``'s constants and
+    schedules, and ``INT8_GEMMS`` names the schedule each GEMM of w8a8.cu
+    and int8_mlp.cu is instantiated with."""
+    consts = dict(re.findall(r"^constexpr int (k\w+) = ([^;]+);", _CORE, re.M))
+    block = tq.gemm_block("fc1")
+    assert int(consts["kBM"]) == block["tile_m"] and int(consts["kBK"]) == block["stage_k"]
+    assert int(consts["kProducerRegs"]) == block["producer_regs"]
+    assert consts["kChunkBytes"] == "64 * 128"
+    found = {name: tuple(int(x) for x in args.split(","))
+             for name, args in re.findall(r"^struct (\w+) : Schedule<([\d, ]+)> \{\};", _CORE, re.M)}
+    assert found == tq._SCHEDULES
+    kernels = {"w8a8": (_cuda.CSRC / "w8a8.cu").read_text(), "int8_mlp": (_cuda.CSRC / "int8_mlp.cu").read_text()}
+    calls = [(lib, epi, sched) for lib, text in kernels.items()
+             for epi, sched in re.findall(r"gemm<(StoreGeluQuant|i8wg::StoreDequant<[^>]+>), i8wg::(\w+)>", text)]
+    gemm_of = {("w8a8", "0"): "w8a8", ("int8_mlp", "1"): "fc2"}
+    got = {}
+    for lib, epi, sched in calls:
+        gemm = "fc1" if epi == "StoreGeluQuant" else gemm_of[lib, epi[-2]]
+        got.setdefault(gemm, set()).add(sched)
+    assert got == {gemm: {sched} for gemm, sched in tq.INT8_GEMMS.items()}
+    assert len(calls) == 5  # one per epilogue: w8a8 fp32 / bf16, fc1, fc2 fp32 / bf16
+
+
+def test_gemm_l2_read_bytes():
+    """A tile reads its A row panel and its B column panel once: at ViT-G
+    the 128 x 128 tiles of the parent design read 1.015 GB (row 6) and
+    4.429 GB (fc1, fc2) from L2; a 256-wide tile past N reads no B beyond N."""
+    m, d, f = 32768, 1408, 6144
+    assert tq.gemm_l2_read_bytes(m, d, d, 128, 128) == m * d * 11 + d * d * 256 == 1_015_021_568
+    assert tq.gemm_l2_read_bytes(m, f, d, 128, 128) == tq.gemm_l2_read_bytes(m, d, f, 128, 128) == 4_429_185_024
+    assert tq.gemm_l2_read_bytes(m, d, f, 128, 256) == m * f * 6 + d * f * 256
+    assert tq.gemm_l2_read_bytes(1, 128, 128, 128, 256) == 128 + 128 * 128
+
+
+# a numpy float32 mirror of the rounding of int8_wgmma.cuh's quantize
+
+_MAGIC = np.float32(12582912.0)  # 1.5 * 2^23
+
+
+def _quantize_rint_magic(c):
+    """``i8wg::quantize``'s rounding of a clamped value: one float addition of
+    1.5 * 2^23, then the low bits of the sum."""
+    t = (np.asarray(c, np.float32) + _MAGIC).astype(np.float32)
+    return t.view(np.int32) - 0x4B400000, t
+
+
+def test_quantize_rounding_by_one_addition_is_rint():
+    """clamp then one addition of 1.5 * 2^23 is rint then clamp, bit for bit,
+    over every float32 in [-128, 128] near the half-integers and a dense
+    sweep between them; NaN goes to -127 both ways."""
+    halves = np.arange(-128, 128, dtype=np.float32) + np.float32(0.5)
+    near = [np.nextafter(halves, np.float32(np.inf * d)) for d in (1, -1)]
+    c = np.concatenate([halves, *near, np.linspace(-200, 200, 2_000_001, dtype=np.float32),
+                        np.float32([0.0, -0.0, np.nan, np.inf, -np.inf])])
+    ref = np.fmin(np.fmax(np.rint(c), np.float32(-127)), np.float32(127))
+    got, _ = _quantize_rint_magic(np.fmin(np.fmax(c, np.float32(-127)), np.float32(127)))
+    ref = np.where(np.isnan(ref), np.float32(-127), ref)
+    np.testing.assert_array_equal(got, ref.astype(np.int32))
