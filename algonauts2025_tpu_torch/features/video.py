@@ -18,6 +18,7 @@ ring over them (parallel/sequence.py).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import typing as tp
 
 import numpy as np
@@ -31,6 +32,7 @@ from ..ops.threefry import normal as jax_normal
 from ..ops.video_prep import preprocess_frames
 from ..parallel.mesh import LocalMesh, local_mesh
 from ..runtime import default_device
+from ..utils.profiling import span
 from .base import LayeredFeatureBase
 
 __all__ = [
@@ -122,10 +124,14 @@ class TorchVideoBackbone(VideoBackbone):
         return self._encode(self.model, frames, self.device)
 
     def _encode(self, model: VJEPA2Backbone, frames: torch.Tensor, device: torch.device) -> torch.Tensor:
-        if device.type == "cuda" and frames.device.type == "cpu":
-            frames = frames.pin_memory()
-        pixels = preprocess_frames(frames.to(device, non_blocking=True), self.crop_size)
-        states = model(pixels, mesh=self.mesh) if self.sequence_parallel else model(pixels)
+        with span("video.upload"):
+            if device.type == "cuda" and frames.device.type == "cpu":
+                frames = frames.pin_memory()
+            frames = frames.to(device, non_blocking=True)
+        with span("video.preprocess"):
+            pixels = preprocess_frames(frames, self.crop_size)
+        with span("video.backbone"):
+            states = model(pixels, mesh=self.mesh) if self.sequence_parallel else model(pixels)
         if states.dim() == 4:  # (L+1, B, N, D) -> token mean
             states = states.mean(dim=2)
         return states.transpose(0, 1)  # (B, L+1, D)
@@ -248,17 +254,26 @@ def encode_window_stream(
     is padded to full width by repeating its last window, and the extra
     outputs are dropped (one compiled batch shape in the JAX package).  Two
     batches stay in flight: batch k computes while k+1 uploads and k-1
-    comes back."""
+    comes back.  Under a profiler batch k's host stages are spans:
+    ``video.stack#<k>``, ``video.encode#<k>`` around the backbone's call
+    (a ``TorchVideoBackbone``'s ``video.upload``, ``video.preprocess`` and
+    ``video.backbone`` inside it) and ``video.fetch#<k>``."""
     outputs: list[np.ndarray] = []
-    pending: list[tuple[torch.Tensor, int]] = []
+    pending: list[tuple[torch.Tensor, int, int]] = []
+    batches = itertools.count()
 
     def flush(keep: int = 0) -> None:
         while len(pending) > keep:
-            states, n = pending.pop(0)
-            outputs.append(states[:n].cpu().numpy())
+            states, n, k = pending.pop(0)
+            with span(f"video.fetch#{k}"):
+                outputs.append(states[:n].cpu().numpy())
 
     def submit(batch: list[np.ndarray], n: int) -> None:
-        pending.append((backbone.encode_windows_async(np.stack(batch)), n))
+        k = next(batches)
+        with span(f"video.stack#{k}"):
+            frames = np.stack(batch)
+        with span(f"video.encode#{k}"):
+            pending.append((backbone.encode_windows_async(frames), n, k))
         flush(keep=2)
 
     batch: list[np.ndarray] = []

@@ -42,6 +42,7 @@ from ...ops.attention import dot_product_attention
 from ...ops.flash_attention import flash_attention
 from ...ops.quant import int8_matmul, int8_matmul_fused, int8_mlp_fused, quantize_dense_params
 from ...parallel.sequence import ring_attention_local
+from ...utils.profiling import span
 
 __all__ = ["VJEPA2Config", "VJEPA2Backbone", "VJEPA2Block", "VJEPA2Attention",
            "params_from_hf", "VJEPA2_VITG"]
@@ -261,8 +262,10 @@ class VJEPA2Block(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, rope) -> tuple[torch.Tensor, torch.Tensor]:
-        x = x + self.attn(_layer_norm(x, self.norm1, self.cfg.dtype), rope)
-        return self.mlp_residual(x)
+        with span("vit.attention"):
+            x = x + self.attn(_layer_norm(x, self.norm1, self.cfg.dtype), rope)
+        with span("vit.mlp"):
+            return self.mlp_residual(x)
 
     def mlp_residual(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """x + MLP(norm2(x)), and the layer's state (the fp32 token mean
@@ -365,18 +368,23 @@ class VJEPA2Backbone(nn.Module):
     def forward(self, pixels: torch.Tensor, mesh=None) -> torch.Tensor:
         """(L+1, B, N, D) hidden states, or (L+1, B, D) token means with
         ``token_pool``.  With ``cfg.sequence_parallel_axis``, ``mesh`` is the
-        ``LocalMesh`` whose shards split the frames (hence the tokens)."""
+        ``LocalMesh`` whose shards split the frames (hence the tokens).
+        Under a profiler its stages are spans: ``vit.embed``, ``vit.rope``,
+        ``vit.attention`` and ``vit.mlp`` in each block, ``vit.final``."""
         if self.cfg.sequence_parallel_axis is not None:
             return self._forward_sequence_parallel(pixels, mesh)
-        x = self._embed(pixels)
-        head = self._state(x)[None]
-        rope = self._rope(x.shape[1], x.device)
+        with span("vit.embed"):
+            x = self._embed(pixels)
+            head = self._state(x)[None]
+        with span("vit.rope"):
+            rope = self._rope(x.shape[1], x.device)
         states = []
         for layer in self.layers:
             x, state = layer(x, rope)
             states.append(state)
-        states[-1] = self._final(x)
-        return torch.cat([head, torch.stack(states)], dim=0)
+        with span("vit.final"):
+            states[-1] = self._final(x)
+            return torch.cat([head, torch.stack(states)], dim=0)
 
     def _replica(self, device: torch.device) -> "VJEPA2Backbone":
         """This backbone on ``device``: itself, or a copy made once."""

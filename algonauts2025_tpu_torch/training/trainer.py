@@ -263,7 +263,7 @@ class BrainTrainer:
             t0 = time.time()
             traced = cfg.profile_dir is not None and epoch == start_epoch
             with trace(cfg.profile_dir) if traced else contextlib.nullcontext():
-                losses = self._train_epoch(train_loader_fn(epoch), epoch, traced)
+                losses = self._train_epoch(train_loader_fn(epoch), epoch)
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
 
             val_metrics = self.evaluate(val_loader_fn(), split="val")
@@ -327,8 +327,7 @@ class BrainTrainer:
                 last_host_state = {**last_host_state, "params": self._swa_params}
             self.save_checkpoint("last", epoch=n_epochs - 1, host_state=last_host_state)
 
-    def _train_epoch(self, loader: tp.Iterable[SegmentData], epoch: int,
-                     traced: bool) -> list[torch.Tensor]:
+    def _train_epoch(self, loader: tp.Iterable[SegmentData], epoch: int) -> list[torch.Tensor]:
         cfg = self.config
         losses = []
         for i, batch in enumerate(loader):
@@ -336,7 +335,7 @@ class BrainTrainer:
                 break
             if cfg.fast_dev_run and i >= 1:
                 break
-            with step_range(i) if traced else contextlib.nullcontext():
+            with step_range(i):
                 loss, _aux = self.train_step(batch.data)
             losses.append(loss)
             if cfg.log_every_n_steps and (i + 1) % cfg.log_every_n_steps == 0:

@@ -1,5 +1,5 @@
-"""Tracing and per-stage timing."""
+"""Tracing."""
 
-from .profiling import StageTimer, step_range, step_summary, trace
+from .profiling import span, step_range, step_summary, trace
 
-__all__ = ["StageTimer", "step_range", "step_summary", "trace"]
+__all__ = ["span", "step_range", "step_summary", "trace"]

@@ -1,4 +1,4 @@
-"""Tracing and per-stage timing.
+"""Tracing.
 
 The port of algonauts2025_tpu/utils/profiling.py:
 
@@ -8,12 +8,15 @@ The port of algonauts2025_tpu/utils/profiling.py:
   package's ``trace``, which carries on without a trace when the profiler
   fails to start, this one raises: a run asked to profile never ends
   "successfully" with no trace.
-- ``step_range(i)``: a ``record_function`` range named ``train_step#<i>``
-  (and an NVTX range on the card) around one train step.
+- ``span(name)``: a ``record_function`` range named ``name`` while a
+  profiler records, and nothing otherwise.  The range sits in the same
+  Chrome trace as the card's kernels and copies, on the same clock, and
+  under ``torch.autograd.profiler.emit_nvtx()`` it is an NVTX range too.
+  The spans of one batch or step end in ``#<index>``.
+- ``step_range(i)``: the span ``train_step#<i>`` around one train step.
 - ``step_summary(path)``: from a written trace, each step's host wall
   time, the card's busy time for the work launched inside the step and
   the number of kernels launched.
-- ``StageTimer``: wall-clock accounting for host pipeline stages.
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
-import time
 import typing as tp
 from collections import defaultdict
 from pathlib import Path
@@ -30,12 +32,13 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["trace", "step_range", "step_summary", "StageTimer", "STEP_PREFIX"]
+__all__ = ["trace", "span", "step_range", "step_summary", "STEP_PREFIX"]
 
 #: name prefix of the per-step ranges
 STEP_PREFIX = "train_step#"
 #: trace categories of work on the card
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -58,19 +61,18 @@ def trace(logdir: str | Path) -> tp.Iterator[torch.profiler.profile]:
     logger.info("Wrote profiler trace to %s", out)
 
 
-@contextlib.contextmanager
-def step_range(step: int) -> tp.Iterator[None]:
-    """A profiler range (and an NVTX range on the card) around step ``step``."""
-    name = f"{STEP_PREFIX}{step}"
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+def span(name: str) -> tp.ContextManager:
+    """A profiler range named ``name`` around the ``with`` block while a
+    profiler records (``torch.profiler`` or ``emit_nvtx``); without one, a
+    no-op that costs one flag check."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def step_range(step: int) -> tp.ContextManager:
+    """The span ``train_step#<step>`` around one train step."""
+    return span(f"{STEP_PREFIX}{step}")
 
 
 def _busy_ms(intervals: list[tuple[float, float]]) -> float:
@@ -135,53 +137,3 @@ def step_summary(trace_path: str | Path) -> list[dict[str, tp.Any]]:
         })
         previous_end = end
     return out
-
-
-class StageTimer:
-    """Accumulates wall-clock per named stage; dumps a JSON summary."""
-
-    def __init__(self) -> None:
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str) -> tp.Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def wrap(self, name: str, iterable: tp.Iterable) -> tp.Iterator:
-        """Attribute the time spent *producing* each item to ``name``."""
-        it = iter(iterable)
-        while True:
-            t0 = time.perf_counter()
-            try:
-                item = next(it)
-            except StopIteration:
-                return
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-            yield item
-
-    def summary(self) -> dict[str, dict[str, float]]:
-        return {
-            name: {
-                "total_s": round(self.totals[name], 4),
-                "count": self.counts[name],
-                "mean_s": round(self.totals[name] / max(1, self.counts[name]), 6),
-            }
-            for name in sorted(self.totals)
-        }
-
-    def dump(self, path: str | Path) -> None:
-        Path(path).write_text(json.dumps(self.summary(), indent=2))
-
-    def log(self) -> None:
-        for name, stats in self.summary().items():
-            logger.info(
-                "stage %-24s total=%.3fs n=%d mean=%.2fms",
-                name, stats["total_s"], stats["count"], stats["mean_s"] * 1e3,
-            )

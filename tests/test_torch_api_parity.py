@@ -54,6 +54,9 @@ JAX_ONLY = {
     "the torch module and optimizer",
     "training/trainer.py:BrainTrainer.batch_sharding": "the NamedSharding a JAX loader puts a "
     "global batch under; a port rank cuts its rows itself (parallel.shard_batch)",
+    **{f"utils/profiling.py:StageTimer{member}": "a wall-clock stage timer on no shared clock, "
+       "which nothing called; the port's stages are profiling.span ranges, in the profiler's "
+       "trace beside the kernels" for member in ("", ".stage", ".wrap", ".summary", ".dump", ".log")},
 }
 
 

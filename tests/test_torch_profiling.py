@@ -1,23 +1,35 @@
-"""The port's tracing and stage timing, on the CPU.
+"""The port's tracing, on the CPU.
 
 ``trace`` writes a Chrome trace with one range per ``step_range``;
 ``step_summary`` reads each step back (on the CPU no kernel is launched:
 device time and launches are 0); ``Experiment(profile=True)`` traces the
 first train epoch, one range per train step; a trace that cannot be written
 raises instead of passing silently (the JAX package's ``trace`` carries on
-without one).  ``StageTimer`` is the twin of tests/test_infra_units.py's.
+without one).  ``span`` opens a range only while a profiler records; the
+video stream's and the ViT's spans appear nested, in the order the code
+runs them.
 """
 
 import json
 import time
 
+import numpy as np
 import pytest
 import torch
 from test_torch_experiment import _config
 
 from algonauts2025_tpu.data.synthetic import make_synthetic_study
 from algonauts2025_tpu_torch.experiment import Experiment
+from algonauts2025_tpu_torch.features.video import TinyVideoBackbone, encode_window_stream
 from algonauts2025_tpu_torch.utils import profiling
+
+
+def _ranges(path) -> list[tuple[str, float, float]]:
+    """The (name, start, end) of each profiler range in a written trace, by start."""
+    events = json.loads(path.read_text())["traceEvents"]
+    return sorted(((e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                   if e.get("ph") == "X" and e.get("cat") == "user_annotation"),
+                  key=lambda r: (r[1], -r[2]))
 
 
 def test_trace_writes_one_range_per_step(tmp_path):
@@ -94,18 +106,50 @@ def test_experiment_profile_traces_the_first_epoch(tmp_path):
     assert "val/pearson" in out
 
 
-def test_stage_timer():
-    timer = profiling.StageTimer()
-    with timer.stage("decode"):
-        time.sleep(0.01)
-    with timer.stage("decode"):
-        time.sleep(0.01)
-    with timer.stage("encode"):
-        time.sleep(0.005)
-    for _ in timer.wrap("iter", range(3)):
-        pass
-    report = timer.summary()
-    assert report["decode"]["total_s"] >= 0.02 and report["decode"]["count"] == 2
-    assert report["encode"]["total_s"] >= 0.005
-    assert report["iter"]["count"] == 3
-    assert set(report) == {"decode", "encode", "iter"}
+def test_span_opens_no_range_without_a_profiler(monkeypatch):
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: opened.append(name))
+    for manager in (profiling.span("video.stack#0"), profiling.step_range(0)):
+        with manager:
+            torch.ones(2).sum()
+    assert opened == []
+
+
+def test_spans_nest_in_the_trace_with_their_index(tmp_path):
+    with profiling.trace(tmp_path):
+        with profiling.span("outer#3"):
+            with profiling.span("inner#3"):
+                torch.ones(4).sum()
+            with profiling.step_range(7):
+                pass
+    ranges = {name: (start, end) for name, start, end in _ranges(tmp_path / "trace.json")}
+    assert {"outer#3", "inner#3", "train_step#7"} <= set(ranges)
+    (o0, o1), (i0, i1), (s0, s1) = ranges["outer#3"], ranges["inner#3"], ranges["train_step#7"]
+    assert o0 <= i0 <= i1 <= s0 <= s1 <= o1
+
+
+def test_window_stream_spans_in_the_order_the_code_runs_them(tmp_path):
+    """Three batches of two windows: each batch's stack and encode (the
+    backbone's upload, preprocess and backbone inside it), and the fetch of
+    the batch two back (the rest after the last batch); the ViT's spans
+    inside each ``video.backbone``."""
+    backbone = TinyVideoBackbone(device="cpu")
+    windows = [np.full((8, 36, 64, 3), i, np.uint8) for i in range(6)]
+    with profiling.trace(tmp_path):
+        encode_window_stream(backbone, windows, window_batch=2)
+    ranges = _ranges(tmp_path / "trace.json")
+    video = [name for name, _, _ in ranges if name.startswith("video.")]
+    want = []
+    for k in (0, 1, 2):
+        want += [f"video.stack#{k}", f"video.encode#{k}", "video.upload", "video.preprocess", "video.backbone"]
+        want += ["video.fetch#0"] if k == 2 else []
+    assert video == want + ["video.fetch#1", "video.fetch#2"]
+    for k in (0, 1, 2):
+        encode = [(s, e) for n, s, e in ranges if n == f"video.encode#{k}"][0]
+        inner = [n for n, s, e in ranges if n.startswith("video.") and encode[0] <= s and e <= encode[1]]
+        assert inner == [f"video.encode#{k}", "video.upload", "video.preprocess", "video.backbone"]
+    n_layers = len(backbone.model.layers)
+    for name, start, end in ranges:
+        if name == "video.backbone":
+            inside = [n for n, s, e in ranges if n.startswith("vit.") and start <= s and e <= end]
+            assert inside == ["vit.embed", "vit.rope"] + ["vit.attention", "vit.mlp"] * n_layers + ["vit.final"]
