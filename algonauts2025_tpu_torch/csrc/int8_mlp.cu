@@ -69,9 +69,10 @@ __device__ __forceinline__ float gelu_as(float x) {
 struct StoreGeluQuant {
   using Out = int8_t;
   using Pair = uint16_t;
+  using Args = const float*;  // the device scalars
   float sx, sh;
   __device__ explicit StoreGeluQuant(const float* scales) : sx(scales[0]), sh(scales[1]) {}
-  __device__ __forceinline__ uint16_t pair(int acc0, int acc1, float2 ws, float2 bias) const {
+  __device__ __forceinline__ uint16_t pair(int acc0, int acc1, float2 ws, float2 bias, int, int) const {
     const int q0 = i8wg::quantize(gelu_as(i8wg::dequant(acc0, sx, ws.x, bias.x)), sh);
     const int q1 = i8wg::quantize(gelu_as(i8wg::dequant(acc1, sx, ws.y, bias.y)), sh);
     return static_cast<uint16_t>((q0 & 0xff) | (q1 & 0xff) << 8);

@@ -2,7 +2,8 @@
 // (M, K) int8 and B given K-major as Bt (N, K) int8, both row-major, and an
 // int32 accumulator that never leaves registers.  Included by both int8
 // kernels: w8a8.cu (kernel row 6, one GEMM) and int8_mlp.cu (row 7, two),
-// which share the quantize pass and the StoreDequant epilogue below.
+// which share the quantize pass and the StoreDequant epilogue below; row
+// 6's query and key take StoreDequantRope, which rotates them as well.
 // flash_attention.cu does not include it: its helpers below (mbarriers,
 // TMA, named barriers, setmaxnreg, wgmma descriptors and fences, the
 // cuTensorMapEncodeTiled lookup) are copies of that file's.
@@ -322,11 +323,12 @@ __device__ __forceinline__ void st_shared(uint32_t at, uint2 v) {
 // .. off + 4 kGroupPairs) (pair e, row r: acc[off + 4 e + 2 r], + 1), into
 // a piece's shared memory at dst, by Epi::pair, in TMA's 128-byte
 // swizzle (the 16-byte chunk u of row i at u ^ (i % 8)): the pairs' columns
-// are ncol + 8 e + 2 (lane % 4) + {0, 1}, col .. of the piece.  Their scales
-// are loaded first and their values computed side by side.
+// are ncol + 8 e + 2 (lane % 4) + {0, 1}, col .. of the piece, their rows
+// row + r0 and row + r0 + 8 of the output.  Their scales are loaded first
+// and their values computed side by side.
 template <int kGroupPairs, class Epi, int N>
 __device__ __forceinline__ void write_group(const Params& g, const Epi& epi, const int (&acc)[N], int off,
-                                            uint32_t dst, int ncol, int col) {
+                                            uint32_t dst, int row, int ncol, int col) {
   const int lane = threadIdx.x % 32, rq = lane / 4, c2 = 2 * (lane % 4);
   const int r0 = 16 * (threadIdx.x / 32 % 4) + rq;
   float2 ws[kGroupPairs], bias[kGroupPairs];
@@ -342,7 +344,8 @@ __device__ __forceinline__ void write_group(const Params& g, const Epi& epi, con
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       st_shared(dst + (r0 + 8 * r) * 128 + (((byte >> 4) ^ rq) << 4) + (byte & 15),
-                epi.pair(acc[off + 4 * e + 2 * r], acc[off + 4 * e + 2 * r + 1], ws[e], bias[e]));
+                epi.pair(acc[off + 4 * e + 2 * r], acc[off + 4 * e + 2 * r + 1], ws[e], bias[e], row + r0 + 8 * r,
+                         ncol + 8 * e + c2));
   }
 }
 
@@ -385,18 +388,22 @@ __device__ __forceinline__ void store_tile(const Params& g, const Epi& epi, cons
     const int nc = n0 + p % kPerHalf * kCols;
     if (nc >= g.N) break;  // the last 128 columns of a 256-wide tile past N
     const uint32_t buf = piece_begin(out_u32, pieces, wg);
+    const int row = row0 + 64 * (p / kPerHalf);
 #pragma unroll
     for (int q = 0; q < kGroups; ++q)
-      write_group<kPairs>(g, epi, acc, 4 * kPairs * (p * kGroups + q), buf, nc + 8 * kPairs * q, 8 * kPairs * q);
-    piece_end(g, buf, nc, row0 + 64 * (p / kPerHalf), wg, pieces);
+      write_group<kPairs>(g, epi, acc, 4 * kPairs * (p * kGroups + q), buf, row, nc + 8 * kPairs * q,
+                          8 * kPairs * q);
+    piece_end(g, buf, nc, row, wg, pieces);
   }
 }
 
-// Epi: constructed in each consumer thread from the device scalars; Out is
-// the output's element type and pair(acc0, acc1, w_scale[n .. n + 1],
-// bias[n .. n + 1]) the Pair of bits of out[m, n] and out[m, n + 1].
+// Epi: constructed in each consumer thread from its Args (the device
+// scalars, and what else it reads); Out is the output's element type and
+// pair(acc0, acc1, w_scale[n .. n + 1], bias[n .. n + 1], m, n) the Pair of
+// bits of out[m, n] and out[m, n + 1].
 template <class Epi, class S>
-__global__ void __launch_bounds__(S::kThreads, 1) gemm_kernel(const __grid_constant__ Params g, const float* scales) {
+__global__ void __launch_bounds__(S::kThreads, 1)
+    gemm_kernel(const __grid_constant__ Params g, const typename Epi::Args args) {
   using L = Layout<S>;
   constexpr int kStages = S::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -450,7 +457,7 @@ __global__ void __launch_bounds__(S::kThreads, 1) gemm_kernel(const __grid_const
     // afresh with each block)
     constexpr int kTurn = 1 + S::kWarpgroups, kTurnThreads = 2 * 128 * S::kTeam;
     if (S::kTeams == 2 && team == 1) bar_arrive(kTurn, kTurnThreads);
-    const Epi epi(scales);
+    const Epi epi(args);
     const uint32_t out_u32 = base + L::kOut + wg * 2 * kChunkBytes;
     int pieces = 0;
     int acc[S::kAcc];
@@ -501,9 +508,10 @@ template <typename TO, int kScale>
 struct StoreDequant {
   using Out = TO;
   using Pair = std::conditional_t<sizeof(TO) == 4, uint2, uint32_t>;
+  using Args = const float*;  // the device scalars
   float s;
   __device__ explicit StoreDequant(const float* scales) : s(scales[kScale]) {}
-  __device__ __forceinline__ Pair pair(int acc0, int acc1, float2 ws, float2 bias) const {
+  __device__ __forceinline__ Pair pair(int acc0, int acc1, float2 ws, float2 bias, int, int) const {
     const float y0 = dequant(acc0, s, ws.x, bias.x);
     const float y1 = dequant(acc1, s, ws.y, bias.y);
     if constexpr (sizeof(TO) == 4) {
@@ -512,6 +520,52 @@ struct StoreDequant {
       const __nv_bfloat162 p = __floats2bfloat162_rn(y0, y1);
       return *reinterpret_cast<const uint32_t*>(&p);
     }
+  }
+};
+
+// Row 6's epilogue for the query and key of the V-JEPA2 attention: the
+// bf16 Pair of Dequant (StoreDequant<__nv_bfloat16, 0>), then the fp32
+// rotary of that interleaved pair, columns n, n + 1 = lanes j, j + 1 of a
+// head (j = n % head_dim) of token t = m % tokens (the rows are (window,
+// token) and the tables' rows are the tokens):
+//   out[m, n]     = x[n] cos[t, j]         + (-x[n + 1]) sin[t, j]
+//   out[m, n + 1] = x[n + 1] cos[t, j + 1] + x[n] sin[t, j + 1]
+// with x the dequantized pair rounded to bf16 and widened back, each
+// product and the sum rounded (_rn, no contraction), and the result rounded
+// to bf16: bit for bit the plain dense's bf16 output rotated by separate
+// fp32 multiplies and an add, as models/backbones/vjepa2.py _apply_rope
+// does.  head_dim is even and divides 128 (a power of two), so no pair or
+// head straddles a tile.  Each pair reads its 16 bytes of the two
+// (tokens, head_dim) fp32 tables through L2 (0.36 GB at ViT-G, where the
+// tables are 4 MB): that traffic, not the arithmetic, is what the rotation
+// adds to the GEMM.
+template <class Dequant>
+struct StoreDequantRope {
+  static_assert(std::is_same_v<typename Dequant::Out, __nv_bfloat16>, "the rotary's output is bf16");
+  using Out = __nv_bfloat16;
+  using Pair = uint32_t;
+  struct Args {
+    const float* scales;
+    const float* cos;  // (tokens, head_dim) fp32
+    const float* sin;
+    int tokens, head_dim;
+  };
+  Dequant dequant;
+  const float* cos;
+  const float* sin;
+  int tokens, lanes;
+  __device__ explicit StoreDequantRope(const Args& a)
+      : dequant(a.scales), cos(a.cos), sin(a.sin), tokens(a.tokens), lanes(a.head_dim - 1) {}
+  __device__ __forceinline__ Pair pair(int acc0, int acc1, float2 ws, float2 bias, int m, int n) const {
+    const Pair bits = dequant.pair(acc0, acc1, ws, bias, m, n);
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
+    const int at = (m % tokens) * (lanes + 1) + (n & lanes);
+    const float2 c = __ldg(reinterpret_cast<const float2*>(cos + at));
+    const float2 s = __ldg(reinterpret_cast<const float2*>(sin + at));
+    const float o0 = __fadd_rn(__fmul_rn(x.x, c.x), __fmul_rn(-x.y, s.x));
+    const float o1 = __fadd_rn(__fmul_rn(x.y, c.y), __fmul_rn(x.x, s.y));
+    const __nv_bfloat162 p = __floats2bfloat162_rn(o0, o1);
+    return *reinterpret_cast<const uint32_t*>(&p);
   }
 };
 
@@ -601,7 +655,7 @@ constexpr CUtensorMapDataType tma_type() {
 // Returns cudaGetLastError() after the launch (0 on success).
 template <class Epi, class S>
 int gemm(const int8_t* a, const int8_t* bt, void* out, const float* w_scale, const float* bias,
-         const float* scales, int M, int N, int K, cudaStream_t stream) {
+         const typename Epi::Args& args, int M, int N, int K, cudaStream_t stream) {
   using Out = typename Epi::Out;
   if (M < 1 || K < kBK || N < 128 || K % kBK || N % 128) return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)((M + kBM - 1) / kBM) * ((N + S::kBN - 1) / S::kBN);
@@ -623,7 +677,7 @@ int gemm(const int8_t* a, const int8_t* bt, void* out, const float* w_scale, con
     e = cudaFuncSetAttribute(gemm_kernel<Epi, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<S>::kBytes);
   if (e != cudaSuccess) return (int)e;
   const int grid = (int)(tiles < sms ? tiles : sms);
-  gemm_kernel<Epi, S><<<grid, S::kThreads, Layout<S>::kBytes, stream>>>(g, scales);
+  gemm_kernel<Epi, S><<<grid, S::kThreads, Layout<S>::kBytes, stream>>>(g, args);
   return (int)cudaGetLastError();
 }
 

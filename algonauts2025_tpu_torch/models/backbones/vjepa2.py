@@ -18,8 +18,10 @@ rotary tables are sliced at each shard's global token offset, and the
 token means are averaged over the shards.  On a CUDA card the calibrated
 static-scale denses, the whole MLP and the attention over >= 1024 tokens
 run the hand-written kernels of ops/quant.py and ops/flash_attention.py
-wherever the JAX package runs its Pallas kernels on a TPU; elsewhere (and
-on the CPU) the plain ops run, as the JAX package's XLA path does.  The
+wherever the JAX package runs its Pallas kernels on a TPU, and the query
+and key denses' kernel applies the fp32 rotary in its epilogue (bit for
+bit ``_apply_rope`` of its bf16 output); elsewhere (and on the CPU) the
+plain ops run, as the JAX package's XLA path does.  The
 scanned ``(L, ...)`` params of the JAX package are one module per layer
 here (``models.convert.vjepa2_params_to_torch`` unstacks them).
 """
@@ -81,7 +83,8 @@ class _QDense(nn.Module):
     """Dense over pre-quantized int8 weights + per-column scales (buffers).
 
     ``static_scale`` uses the calibrated activation scale ``a_scale``; on a
-    CUDA card, with 128-aligned dims, that runs the fused w8a8 kernel.
+    CUDA card, with 128-aligned dims, that runs the fused w8a8 kernel
+    (``runs_kernel``), which can also rotate the output (``rope``).
     While ``observing`` (set by ``calibrate_quant_scales``) every call
     records its input absmax in ``absmax`` and quantizes dynamically.
     ``kernel_q_kmajor`` gives the K-major copy that both fused kernels
@@ -121,13 +124,20 @@ class _QDense(nn.Module):
             m = x.detach().float().abs().amax()
             self.absmax = m if self.absmax is None else torch.maximum(self.absmax, m)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self.observe(x)
-        calibrated = self.static_scale and not self.observing
+    def runs_kernel(self, x: torch.Tensor) -> bool:
+        """Whether ``forward(x)`` runs the fused w8a8 kernel: a calibrated
+        static scale, not observing, 128-aligned dims and a CUDA input."""
         aligned = self.in_features % 128 == 0 and self.features % 128 == 0
-        if calibrated and aligned and x.is_cuda:
-            return int8_matmul_fused(x, self.kernel_q, self.scale, self.a_scale,
-                                     bias=self.bias, out_dtype=x.dtype, w_kmajor=self.kernel_q_kmajor())
+        return self.static_scale and not self.observing and aligned and x.is_cuda
+
+    def forward(self, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+        """The dense of x; with ``rope`` (only where ``runs_kernel(x)``), its
+        heads rotated in the kernel's epilogue."""
+        self.observe(x)
+        if self.runs_kernel(x):
+            return int8_matmul_fused(x, self.kernel_q, self.scale, self.a_scale, bias=self.bias,
+                                     out_dtype=x.dtype, w_kmajor=self.kernel_q_kmajor(), rope=rope)
+        calibrated = self.static_scale and not self.observing
         y = int8_matmul(x, self.kernel_q, self.scale, x_scale=self.a_scale if calibrated else None)
         if self.bias is not None:
             y = y + self.bias
@@ -176,7 +186,9 @@ def _rope_tables(n: int, head_dim: int, crop_size: int, patch_size: int) -> tupl
 
 def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x: (B, H, N, D); cos/sin: (N, D) fp32.  One fused rotation in fp32;
-    the identity tail (cos=1, sin=0) makes the global expression exact."""
+    the identity tail (cos=1, sin=0) makes the global expression exact.
+    The plain rotary: where the query and key denses run the w8a8 kernel,
+    its epilogue computes this bit for bit instead (``project``)."""
     x32 = x.float()
     pair = x32.reshape(*x32.shape[:-1], x32.shape[-1] // 2, 2)
     rot = torch.stack([-pair[..., 1], pair[..., 0]], dim=-1).reshape(x32.shape)
@@ -215,15 +227,30 @@ class VJEPA2Attention(nn.Module):
         self.value = _dense(cfg, d, d, device)
         self.proj = _dense(cfg, d, d, device)
 
+    def _rotates_in_kernel(self, x: torch.Tensor, hd: int) -> bool:
+        """Whether the query and key denses of x run the w8a8 kernel with
+        the rotary in its epilogue: both take the kernel, the output is
+        bf16, and the heads' lanes are even and divide its 128-wide tiles."""
+        dense = (self.query, self.key)
+        return (x.dtype == torch.bfloat16 and hd % 2 == 0 and 128 % hd == 0
+                and all(isinstance(m, _QDense) and m.runs_kernel(x) for m in dense))
+
     def project(self, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]):
-        """(B, H, N, hd) q, k (rotated) and v of the (B, N, d) input."""
+        """(B, H, N, hd) q, k (rotated) and v of the (B, N, d) input.  Where
+        the query and key denses run the w8a8 kernel, its epilogue rotates
+        them; elsewhere ``_apply_rope`` does."""
         b, n, d = x.shape
         h = self.cfg.num_heads
         hd = d // h
-        # head-split views (B, H, N, hd) of the (B, N, d) projections
-        q = self.query(x).reshape(b, n, h, hd).transpose(1, 2)
-        k = self.key(x).reshape(b, n, h, hd).transpose(1, 2)
-        v = self.value(x).reshape(b, n, h, hd).transpose(1, 2)
+
+        def heads(y: torch.Tensor) -> torch.Tensor:
+            """The head-split view (B, H, N, hd) of a (B, N, d) projection."""
+            return y.reshape(b, n, h, hd).transpose(1, 2)
+
+        if self._rotates_in_kernel(x, hd):
+            # the kernel's (B N, d) output rows are tokens m % N of the tables
+            return heads(self.query(x, rope)), heads(self.key(x, rope)), heads(self.value(x))
+        q, k, v = (heads(m(x)) for m in (self.query, self.key, self.value))
         cos, sin = rope
         return _apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v
 

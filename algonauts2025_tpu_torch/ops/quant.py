@@ -45,13 +45,14 @@ __all__ = [
 ]
 
 #: kernel launches since the last reset, counted where each kernel launches
-launch_counts: dict[str, int] = {"w8a8": 0, "int8_mlp": 0}
+#: (``w8a8_rope``: the w8a8 kernel with the rotary in its epilogue)
+launch_counts: dict[str, int] = {"w8a8": 0, "w8a8_rope": 0, "int8_mlp": 0}
 
-#: (library, entry point, argument types) of the two kernels' C interfaces
-_W8A8 = ("w8a8", "w8a8_forward", (
-    (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4
-    + (ctypes.c_void_p,)
-))
+#: (library, entry point, argument types) of the kernels' C interfaces
+_W8A8_ARGS = (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4
+_W8A8 = ("w8a8", "w8a8_forward", _W8A8_ARGS + (ctypes.c_void_p,))
+_W8A8_ROPE = ("w8a8", "w8a8_rope_forward", _W8A8_ARGS + (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 2
+              + (ctypes.c_void_p,))
 _INT8_MLP = ("int8_mlp", "int8_mlp_forward", (
     (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4
     + (ctypes.c_void_p,)
@@ -194,6 +195,40 @@ def _bias(bias: torch.Tensor | None, n: int, device) -> torch.Tensor:
     return torch.zeros(n, dtype=torch.float32, device=device) if bias is None else bias.float()
 
 
+def _rotate(y: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The V-JEPA rotary of every head of y (M, N): row m is token m % T of
+    the (T, hd) fp32 tables, and each head's interleaved lane pairs rotate
+    in fp32, by separate multiplies and an add, as ``_apply_rope`` of
+    models/backbones/vjepa2.py does."""
+    t, hd = cos.shape
+    y32 = y.float().reshape(-1, t, y.shape[-1] // hd, hd)
+    pair = y32.reshape(*y32.shape[:-1], hd // 2, 2)
+    rot = torch.stack([-pair[..., 1], pair[..., 0]], dim=-1).reshape(y32.shape)
+    return (y32 * cos[:, None] + rot * sin[:, None]).to(y.dtype).reshape(y.shape)
+
+
+def _check_rope(rope, x: torch.Tensor, m: int, out_dtype: torch.dtype) -> None:
+    """Raise unless ``rope`` is the (cos, sin) pair that the rotating
+    epilogue takes for an (m, N) output: fp32, contiguous, on x's device,
+    both (T, hd) with T dividing m and hd even and dividing 128 (so that no
+    pair or head straddles a 128-wide tile), and a bf16 output."""
+    cos, sin = rope
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"int8_matmul_fused: the rotary's output is bfloat16, got {out_dtype}")
+    for name, table in (("cos", cos), ("sin", sin)):
+        if table.dtype != torch.float32:
+            raise TypeError(f"int8_matmul_fused: rope {name} must be float32, got {table.dtype}")
+        if not table.is_contiguous() or table.device != x.device:
+            raise ValueError(f"int8_matmul_fused: rope {name} must be contiguous on {x.device}")
+    if cos.dim() != 2 or sin.shape != cos.shape:
+        raise ValueError(f"int8_matmul_fused: rope tables must be two (T, hd), got {tuple(cos.shape)}, "
+                         f"{tuple(sin.shape)}")
+    t, hd = cos.shape
+    if t < 1 or m % t or hd % 2 or _ALIGN % hd:
+        raise ValueError(f"int8_matmul_fused: rope tables ({t}, {hd}) need T dividing M={m} and an even "
+                         f"hd dividing {_ALIGN}")
+
+
 def int8_matmul_fused_plain(
     x: torch.Tensor,
     w_q: torch.Tensor,
@@ -203,6 +238,7 @@ def int8_matmul_fused_plain(
     out_dtype: torch.dtype = torch.bfloat16,
     *,
     w_kmajor: torch.Tensor | None = None,
+    rope: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """The plain version of ``int8_matmul_fused`` on any device, equal to
     the kernel bit for bit; it reads the (K, N) weight and takes the
@@ -211,6 +247,8 @@ def int8_matmul_fused_plain(
     sx = _static_scale(x_scale).to(x.device)
     acc = _int_matmul(_quantize(x.float().reshape(-1, k), sx), w_q)
     out = _dequant(acc, sx, w_scale, _bias(bias, n, x.device)).to(out_dtype)
+    if rope is not None:
+        out = _rotate(out, *rope)
     return out.reshape(*x.shape[:-1], n)
 
 
@@ -232,6 +270,7 @@ def int8_matmul_fused(
     out_dtype: torch.dtype = torch.bfloat16,
     *,
     w_kmajor: torch.Tensor | None = None,
+    rope: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Static-scale w8a8 dense: float x (..., K) @ int8 (K, N) + bias -> out_dtype.
 
@@ -240,7 +279,11 @@ def int8_matmul_fused(
     poisons the output with NaN.  K and N must be multiples of 128, as the
     JAX wrapper requires.  The kernel reads its weight K-major:
     ``w_kmajor`` is ``w_q.T`` (N, K), contiguous, required on a CUDA card
-    and ignored on the CPU."""
+    and ignored on the CPU.  ``rope`` (cos, sin), two (T, hd) fp32 tables,
+    rotates the bf16 output's heads in the epilogue: the output's rows are
+    (..., T) tokens, its columns heads of hd interleaved lane pairs
+    (``_check_rope``); bit for bit the bf16 dense followed by the V-JEPA
+    rotary (``_apply_rope`` of models/backbones/vjepa2.py)."""
     lead = x.shape[:-1]
     k, n = w_q.shape
     if x.shape[-1] != k:
@@ -251,8 +294,11 @@ def int8_matmul_fused(
         raise ValueError(
             f"int8_matmul_fused: w_kmajor must be {(n, k)} (K-major), got {tuple(w_kmajor.shape)}"
         )
+    m = x.numel() // k
+    if rope is not None:
+        _check_rope(rope, x, m, out_dtype)
     if x.device.type == "cpu":
-        return int8_matmul_fused_plain(x, w_q, w_scale, x_scale, bias, out_dtype)
+        return int8_matmul_fused_plain(x, w_q, w_scale, x_scale, bias, out_dtype, rope=rope)
     if w_kmajor is None:
         raise ValueError("w8a8 kernel: w_kmajor (the K-major weight) is required")
     x2 = x.reshape(-1, k)
@@ -263,19 +309,22 @@ def int8_matmul_fused(
                      x_scale=sx)
     if w_kmajor.dtype != torch.int8:
         raise TypeError(f"w8a8 kernel: w_kmajor must be int8, got {w_kmajor.dtype}")
-    m = x2.shape[0]
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     codes = _cuda.DTYPE_CODES
+    args = (x2.data_ptr(), codes[x2.dtype], w_kmajor.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
+            sx.data_ptr(), xq.data_ptr(), out.data_ptr(), codes[out_dtype], m, n, k)
+    name = "w8a8" if rope is None else "w8a8_rope"
     with torch.cuda.device(x.device):
-        err = _cuda.function(*_W8A8)(
-            x2.data_ptr(), codes[x2.dtype], w_kmajor.data_ptr(), w_scale.data_ptr(),
-            bias.data_ptr(), sx.data_ptr(), xq.data_ptr(), out.data_ptr(), codes[out_dtype],
-            m, n, k, torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if rope is None:
+            err = _cuda.function(*_W8A8)(*args, stream)
+        else:
+            cos, sin = rope
+            err = _cuda.function(*_W8A8_ROPE)(*args, cos.data_ptr(), sin.data_ptr(), *cos.shape, stream)
     if err != 0:
-        raise RuntimeError(f"w8a8 kernel launch failed: CUDA error {err} (M={m}, K={k}, N={n})")
-    launch_counts["w8a8"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} (M={m}, K={k}, N={n})")
+    launch_counts[name] += 1
     return out.reshape(*lead, n)
 
 

@@ -124,7 +124,7 @@ def _build_all(texts: dict[str, dict[str, str]]) -> dict[str, dict[str, tuple[Pa
 def _instantiation(name: str) -> str:
     """"epilogue, schedule" of a mangled ``gemm_kernel`` name (the schedule is
     absent in a core without schedules)."""
-    epilogue = re.search(r"(StoreGeluQuant|StoreDequantI\w+?Li\dEE)", name).group(1)
+    epilogue = re.search(r"(StoreGeluQuant|StoreDequantRope|StoreDequantI\w+?Li\dEE)", name).group(1)
     schedule = re.search(r"(Cooperative|PingPongPairs|PingPong)", name)
     return f"{epilogue}, {schedule.group(1) if schedule else '-'}"
 

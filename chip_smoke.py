@@ -24,7 +24,10 @@ Phases (any failure exits non-zero):
    report (before any launch); that of every GEMM of the two int8
    kernels ``IGMMA`` and ``USETMAXREG``, with no spills, the launch
    registers of ``quant.gemm_block`` and the schedule ``quant.INT8_GEMMS``
-   names; the w8a8 kernel must refuse an unaligned K without a launch.  The
+   names; the w8a8 kernel must refuse an unaligned K without a launch, and
+   its rotating entry (the query's and key's, with the V-JEPA rotary in the
+   epilogue) must equal its plain version at ViT-G with the ViT-G tables,
+   beside the plain epilogue's time.  The
    int8 kernels' quantize passes and GEMMs are timed apart under
    ``torch.profiler``, beside the bytes their tiles read from L2.  The
    flash rows' bounds count their exponentials at the MUFU's rate beside
@@ -344,18 +347,20 @@ def sass_functions(library: Path) -> list[tuple[str, str]]:
 
 
 #: the GEMM instantiations of the int8 core in each int8 kernel's library,
-#: one per epilogue (as mangled; w8a8: dequant by sx to fp32 and bf16; the
-#: MLP: fc1's gelu/requant, fc2's dequant by sh to fp32 and bf16), and the
-#: GEMM of ``quant.INT8_GEMMS`` each serves, which gives its schedule
+#: one per epilogue (as mangled; w8a8: dequant by sx to fp32 and bf16, and
+#: the bf16 one rotated; the MLP: fc1's gelu/requant, fc2's dequant by sh
+#: to fp32 and bf16), and the GEMM of ``quant.INT8_GEMMS`` each serves,
+#: which gives its schedule
 INT8_GEMMS = {
-    "w8a8": {"StoreDequantIfLi0EE": "w8a8", "StoreDequantI13__nv_bfloat16Li0EE": "w8a8"},
+    "w8a8": {"StoreDequantIfLi0EE": "w8a8", "StoreDequantI13__nv_bfloat16Li0EE": "w8a8",
+             "StoreDequantRope": "w8a8"},
     "int8_mlp": {"StoreGeluQuant": "fc1", "StoreDequantIfLi1EE": "fc2", "StoreDequantI13__nv_bfloat16Li1EE": "fc2"},
 }
 
 
 def int8_instantiation(name: str) -> tuple[str, str]:
     """(epilogue, schedule) of a mangled ``gemm_kernel`` name of the int8 core."""
-    epilogue = re.search(r"(StoreGeluQuant|StoreDequantI\w+?Li\dEE)", name).group(1)
+    epilogue = re.search(r"(StoreGeluQuant|StoreDequantRope|StoreDequantI\w+?Li\dEE)", name).group(1)
     return epilogue, re.search(r"(Cooperative|PingPongPairs|PingPong)", name).group(1)
 
 
@@ -628,8 +633,98 @@ def check_w8a8(peaks: dict[str, float]) -> dict:
                                    top=4), 10, {"quantize": "quantize_kernel", "GEMM": "gemm_kernel"})
     log(f"w8a8 ({m}, {k}, {n}) a call under the profiler: quantize pass {parts['quantize']:.4f} ms, GEMM "
         f"{parts['GEMM']:.4f} ms ({ops / parts['GEMM'] / 1e9:.1f} TOP/s); " + l2_line("w8a8", m, n, k, nbytes))
+    check_w8a8_rope(gen)
     return kernel_record("w8a8", "w8a8.cu", "algonauts2025_tpu/ops/quant.py:107 (_fused_w8a8_kernel)",
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
+
+
+def rope_tables(tokens: int, start: int = 0, total: int | None = None, head_dim: int = 64):
+    """The V-JEPA rotary tables, fp32 on the card, of tokens [start, start +
+    tokens) of ``total`` at ViT-G's crop and patch (a sequence-parallel
+    shard's slice when start > 0)."""
+    tables = vjepa2._rope_tables(total or tokens, head_dim, VJEPA2_VITG.crop_size, VJEPA2_VITG.patch_size)
+    return tuple(torch.from_numpy(t[start:start + tokens]).cuda() for t in tables)
+
+
+def check_w8a8_rope(gen: torch.Generator) -> None:
+    """The w8a8 kernel's rotating entry (the query's and key's) against its
+    plain version, exact equality: at ViT-G with its (8192, 64) tables for
+    two weights, over a shard's slice of the tables, at head dims 128 and 32
+    with a ragged M and fp32 x; NaN from a_scale = 0; the wrapper and the C
+    entry refuse bad tables without a launch.  Then the device ms a call of
+    the plain epilogue and of the rotating one, and of the plain epilogue
+    with ``_apply_rope`` after it (the route it replaces), side by side."""
+    m, k, n = VITG_M, VITG_D, VITG_D
+    tokens = m // 4
+    cases = [("query", m, k, n, torch.bfloat16, rope_tables(tokens)),
+             ("key", m, k, n, torch.bfloat16, rope_tables(tokens)),
+             ("tokens 4096-6143 of 8192", 4 * 2048, k, n, torch.bfloat16, rope_tables(2048, 4096, tokens)),
+             ("hd 128, 96 tokens", 2 * 96, 384, 256, torch.bfloat16, rope_tables(96, head_dim=128)),
+             ("hd 32, fp32 x", 3 * 64, 256, 128, torch.float32, rope_tables(64, 64, 256, head_dim=32))]
+    for label, mm, kk, nn, x_dtype, tables in cases:
+        x, w_q, w_s, sx, bias, w_t = w8a8_case(mm, kk, nn, x_dtype, gen)
+        out = quant.int8_matmul_fused(x, w_q, w_s, sx, bias=bias, w_kmajor=w_t, rope=tables)
+        torch.cuda.synchronize()
+        ref = quant.int8_matmul_fused_plain(x, w_q, w_s, sx, bias=bias, rope=tables)
+        dense = quant.int8_matmul_fused_plain(x, w_q, w_s, sx, bias=bias)
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = out.dtype == torch.bfloat16 and torch.equal(out, ref) and not torch.equal(out, dense)
+        log(f"w8a8_rope {label} ({mm}, {kk}, {nn}), tables {tuple(tables[0].shape)}: max_abs_err {err:.3e} "
+            f"(exact equality) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the rotating w8a8 kernel is not equal to its plain version")
+    poisoned = quant.int8_matmul_fused(x, w_q, w_s, torch.zeros((), device="cuda"), bias=bias, w_kmajor=w_t,
+                                       rope=tables)
+    if not torch.isnan(poisoned).all():
+        raise SystemExit("the rotating w8a8 kernel did not poison a_scale = 0 with NaN")
+    before = dict(quant.launch_counts)
+    refused = []
+    for bad in ((torch.ones(64, 96, device="cuda"), torch.zeros(64, 96, device="cuda")),
+                tuple(t[:60].contiguous() for t in tables)):
+        try:
+            quant.int8_matmul_fused(x, w_q, w_s, sx, bias=bias, w_kmajor=w_t, rope=bad)
+        except ValueError:
+            refused.append(True)
+    xq = torch.empty(x.shape, dtype=torch.int8, device="cuda")
+    out = torch.empty((x.shape[0], w_t.shape[0]), dtype=torch.bfloat16, device="cuda")
+    sxs = quant._static_scale(sx).reshape(1)
+    with torch.cuda.device(x.device):
+        code = _cuda.function(*quant._W8A8_ROPE)(
+            x.data_ptr(), _cuda.DTYPE_CODES[x.dtype], w_t.data_ptr(), w_s.data_ptr(), bias.data_ptr(), sxs.data_ptr(), xq.data_ptr(),
+            out.data_ptr(), 1, x.shape[0], w_t.shape[0], x.shape[1], tables[0].data_ptr(), tables[1].data_ptr(),
+            60, 32, torch.cuda.current_stream().cuda_stream)
+    log(f"w8a8_rope: a_scale = 0 all NaN ok; tables (64, 96) and T = 60 refused by the wrapper: {refused}; "
+        f"T = 60 refused by the C entry with {code}; launches {dict(quant.launch_counts)} (before {before})")
+    if refused != [True, True] or code == 0 or quant.launch_counts != before:
+        raise SystemExit("the rotating w8a8 kernel took tables it must refuse")
+
+    x, w_q, w_s, sx, bias, w_t = w8a8_case(m, k, n, torch.bfloat16, gen)
+    tables = rope_tables(tokens)
+
+    def plain_epilogue():
+        return quant.int8_matmul_fused(x, w_q, w_s, sx, bias=bias, w_kmajor=w_t)
+
+    def rotating_epilogue():
+        return quant.int8_matmul_fused(x, w_q, w_s, sx, bias=bias, w_kmajor=w_t, rope=tables)
+
+    def apply_rope_after():
+        heads = plain_epilogue().reshape(4, tokens, n // 64, 64).transpose(1, 2)
+        return vjepa2._apply_rope(heads, *tables)
+
+    times = {"plain": [], "rotating": [], "plain + _apply_rope": []}
+    for label in ("plain", "rotating", "plain + _apply_rope", "plain + _apply_rope", "rotating", "plain"):
+        fn = {"plain": plain_epilogue, "rotating": rotating_epilogue, "plain + _apply_rope": apply_rope_after}
+        times[label].append(time_ms(fn[label]))
+    ms = {label: statistics.mean(v) for label, v in times.items()}
+    parts = int8_parts(profile_run("w8a8 plain and rotating x 10 each at ViT-G",
+                                   lambda: [f() for f in [plain_epilogue, rotating_epilogue] * 10],
+                                   10 * (ms["plain"] + ms["rotating"]), top=4), 10,
+                       {"quantize": "quantize_kernel", "plain GEMM": "gemm_kernel<i8wg::StoreDequant<",
+                        "rotating GEMM": "StoreDequantRope"})
+    log(f"w8a8 ({m}, {k}, {n}) bf16, a call (CUDA events, in turns P R A A R P): plain epilogue "
+        f"{ms['plain']:.4f} ms, rotating epilogue {ms['rotating']:.4f} ms, plain + _apply_rope "
+        f"{ms['plain + _apply_rope']:.4f} ms; under the profiler: GEMM plain {parts['plain GEMM']:.4f} ms, "
+        f"rotating {parts['rotating GEMM']:.4f} ms, quantize pass {parts['quantize'] / 2:.4f} ms")
 
 
 def mlp_case(m, k, f, gen):
@@ -1115,7 +1210,7 @@ def check_small_backbone_against_cpu() -> None:
     windows = np.random.default_rng(SEED + 5).integers(0, 256, (2, 32, 144, 256, 3), dtype=np.uint8)
     reset_counts()
     a = gpu.encode_windows(windows).astype(np.float64)
-    counts = {key: launch_counts()[key] for key in ("flash_attention", "w8a8", "int8_mlp")}
+    counts = {key: launch_counts()[key] for key in ("flash_attention", "w8a8", "w8a8_rope", "int8_mlp")}
     b = cpu.encode_windows(windows).astype(np.float64)
     cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
     rel = np.abs(a - b).max() / np.abs(b).max()
@@ -1264,7 +1359,8 @@ def video_path(n_windows: int = 10, window_batch: int = 4) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_batches = -(-n_windows // window_batch)
     expected = {**{key: 0 for key in launches}, "flash_attention": cfg.num_layers * n_batches,
-                "w8a8": 4 * cfg.num_layers * n_batches, "int8_mlp": cfg.num_layers * n_batches}
+                "w8a8": 2 * cfg.num_layers * n_batches, "w8a8_rope": 2 * cfg.num_layers * n_batches,
+                "int8_mlp": cfg.num_layers * n_batches}
     trunk_input = aggregate_layers(feats, [0.5, 0.75, 1.0])
     log(f"video features {feats.shape}, trunk input {trunk_input.shape}; batch seconds {batch_s}; "
         f"the stream with two batches in flight: {stream_s:.3f} s for {n_batches} batches, "
@@ -2072,7 +2168,8 @@ def trimodal_path(root: Path, llama: TorchTextBackbone, audio: TorchAudioBackbon
     windows = int(round(2 * TRIMODAL_STUDY["duration"]))
     batches = 3 * -(-windows // exp.data.video_feature.window_batch)
     expected = {"flash_attention": vit_cfg.num_layers * batches,
-                "w8a8": 4 * vit_cfg.num_layers * batches, "int8_mlp": vit_cfg.num_layers * batches}
+                "w8a8": 2 * vit_cfg.num_layers * batches, "w8a8_rope": 2 * vit_cfg.num_layers * batches,
+                "int8_mlp": vit_cfg.num_layers * batches}
     log(f"Experiment (trimodal default: Llama-3.2-3B, w2v-BERT 2.0, ViT-G int8, flagship trunk): "
         f"{total_s:.2f} s; by stage { {k: round(v, 3) for k, v in clock.seconds.items()} }; "
         f"peak {peak_gb:.2f} GB; launches {launches} (video rows expected {expected}); "
@@ -2106,7 +2203,7 @@ ENSEMBLE = dict(weigh_by_score=True, per_voxel_weights=True, temperature=0.3)
 ENSEMBLE_RTOL = 1e-6
 GRID_SEEDS = 5
 #: rows 2, 4, 6 and 7: the feature kernels, which a run over cached features never launches
-FEATURE_KERNELS = ("flash_masked", "flash_attention", "w8a8", "int8_mlp")
+FEATURE_KERNELS = ("flash_masked", "flash_attention", "w8a8", "w8a8_rope", "int8_mlp")
 PROFILE_FIRST, PROFILE_LAST = 6, 4
 #: the profiled run trains two epochs (the trace covers the first): does the
 #: second start slow as well?
@@ -2696,7 +2793,8 @@ def sequence_parallel_path(video: dict | None, mesh, part: str = "(c)") -> dict:
     cos = (got * ref).sum(-1) / (np.linalg.norm(got, axis=-1) * norms)
     rel = np.linalg.norm(got - ref, axis=-1) / norms
     per_shard = cfg.num_layers * mesh.size
-    expected = {**{key: 0 for key in launches}, "w8a8": 4 * per_shard, "int8_mlp": per_shard}
+    expected = {**{key: 0 for key in launches}, "w8a8": 2 * per_shard, "w8a8_rope": 2 * per_shard,
+                "int8_mlp": per_shard}
     log(f"{part} ViT-G over {mesh.size} shards on {sorted({str(d) for d in mesh.devices})} "
         f"({batch.shape[0]} windows, 8192 tokens each, {8192 // mesh.size} a shard): "
         f"{batch_s:.3f} s ({video.get('what', 'phase 5')}: {video['batch_s']:.4f} s a batch), peak "

@@ -37,6 +37,8 @@ def test_baseline_directory_is_read_whole(tmp_path):
     ("_ZN4i8wg11gemm_kernelIN12_GLOBAL__N_114StoreGeluQuantENS_11CooperativeEEEvNS_6ParamsEPKf",
      "StoreGeluQuant, Cooperative"),
     ("_ZN4i8wg11gemm_kernelINS_12StoreDequantIfLi1EEEEEvNS_6ParamsEPKf", "StoreDequantIfLi1EE, -"),
+    ("_ZN4i8wg11gemm_kernelINS_16StoreDequantRopeINS_12StoreDequantI13__nv_bfloat16Li0EEEEENS_8PingPongEEEvNS_6Params"
+     "ENT_4ArgsE", "StoreDequantRope, PingPong"),
 ])
 def test_instantiation_names(mangled, want):
     assert int8_levers._instantiation(mangled) == want

@@ -126,6 +126,103 @@ def test_int8_matmul_fused_plain_with_kmajor_equals_pallas(rng):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
+def _rope_dense(rng, windows, tokens, hd, start, total):
+    """bf16 x (windows, tokens, 256), a 256-wide dense's torch args and
+    bias, and the V-JEPA rotary tables of tokens [start, start + tokens) of
+    ``total`` (a sequence-parallel shard's slice when start > 0)."""
+    from algonauts2025_tpu_torch.models.backbones import vjepa2 as tv
+
+    _, (x, w_q, w_s, sx), bias = _w8a8_inputs(rng, windows * tokens, 256, 256)
+    cos, sin = (torch.from_numpy(t[start:start + tokens]) for t in tv._rope_tables(total, hd, 64, 16))
+    return (x.reshape(windows, tokens, 256), w_q, w_s, sx), torch.from_numpy(bias), (cos, sin)
+
+
+@pytest.mark.parametrize("hd,start,total", [(64, 0, 48), (64, 48, 96), (32, 0, 48), (128, 16, 64)])
+def test_int8_matmul_fused_rope_equals_dense_then_apply_rope(rng, hd, start, total):
+    """The rotating dense (its plain version, and the wrapper on CPU
+    tensors) equals the bf16 dense followed by the backbone's ``_apply_rope``
+    bit for bit: two windows over tables of their tokens, full or sliced at
+    a shard's token offset."""
+    from algonauts2025_tpu_torch.models.backbones import vjepa2 as tv
+
+    tokens = 48 if start != 16 else 32
+    args, bias, (cos, sin) = _rope_dense(rng, 2, tokens, hd, start, total)
+    dense = tq.int8_matmul_fused_plain(*args, bias=bias)
+    heads = dense.reshape(2, tokens, 256 // hd, hd).transpose(1, 2)
+    want = tv._apply_rope(heads, cos, sin).transpose(1, 2).reshape(dense.shape)
+    plain = tq.int8_matmul_fused_plain(*args, bias=bias, rope=(cos, sin))
+    wrapped = tq.int8_matmul_fused(*args, bias=bias, rope=(cos, sin), w_kmajor=args[1].T.contiguous())
+    assert plain.dtype == wrapped.dtype == torch.bfloat16 and plain.shape == (2, tokens, 256)
+    assert torch.equal(plain, want) and torch.equal(wrapped, want)
+    assert not torch.equal(plain, dense)  # the tables rotate these tokens
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    ("float64", TypeError, "must be float32"),
+    ("strided", ValueError, "must be contiguous"),
+    ("3-d", ValueError, "two \\(T, hd\\)"),
+    ("sin shape", ValueError, "two \\(T, hd\\)"),
+    ("T", ValueError, "T dividing M"),
+    ("odd hd", ValueError, "even hd"),
+    ("hd 96", ValueError, "dividing 128"),
+    ("float32 out", TypeError, "output is bfloat16"),
+])
+def test_int8_matmul_fused_refuses_bad_rope_tables(rng, bad, error, match):
+    """The wrapper checks the tables before it runs anything: fp32,
+    contiguous, both (T, hd) with T dividing M and an even hd dividing 128,
+    and a bf16 output."""
+    args, bias, (cos, sin) = _rope_dense(rng, 2, 48, 64, 0, 48)
+    out_dtype = torch.bfloat16
+    if bad == "float64":
+        cos = cos.double()
+    elif bad == "strided":
+        cos = torch.cat([cos, cos], dim=1)[:, ::2]
+    elif bad == "3-d":
+        cos, sin = cos[None], sin[None]
+    elif bad == "sin shape":
+        sin = sin[:, :32].contiguous()
+    elif bad == "T":
+        cos, sin = cos[:36].contiguous(), sin[:36].contiguous()
+    elif bad == "odd hd":
+        cos, sin = cos[:, :63].contiguous(), sin[:, :63].contiguous()
+    elif bad == "hd 96":
+        cos, sin = torch.ones(48, 96), torch.zeros(48, 96)
+    else:
+        out_dtype = torch.float32
+    before = dict(tq.launch_counts)
+    with pytest.raises(error, match=match):
+        tq.int8_matmul_fused(*args, bias=bias, out_dtype=out_dtype, rope=(cos, sin))
+    assert tq.launch_counts == before
+
+
+def test_rope_gemm_is_row_6s_gemm_on_its_schedule():
+    """w8a8.cu's rotating entry runs the dequantizing epilogue of row 6
+    (StoreDequant by sx, bf16) inside StoreDequantRope, on the schedule
+    ``INT8_GEMMS`` names for row 6, and refuses what its wrapper refuses."""
+    text = (_cuda.CSRC / "w8a8.cu").read_text()
+    epi = re.search(r"using Epi = (i8wg::StoreDequantRope<i8wg::StoreDequant<__nv_bfloat16, 0>>);", text)
+    sched = re.findall(r"gemm<Epi, i8wg::(\w+)>", text)
+    assert epi and sched == [tq.INT8_GEMMS["w8a8"]]
+    assert "int w8a8_rope_forward(" in text and tq._W8A8_ROPE[:2] == ("w8a8", "w8a8_rope_forward")
+    assert len(tq._W8A8_ROPE[2]) == len(tq._W8A8[2]) + 4  # the tables, T and hd
+    assert "out_dtype != 1 || tokens < 1 || M % tokens || head_dim < 2 || head_dim > 128 || 128 % head_dim" in text
+
+
+@pytest.mark.parametrize("mangled,want", [
+    ("_ZN4i8wg11gemm_kernelINS_12StoreDequantI13__nv_bfloat16Li0EEENS_8PingPongEEEvNS_6ParamsEPKf",
+     ("StoreDequantI13__nv_bfloat16Li0EE", "PingPong")),
+    ("_ZN4i8wg11gemm_kernelINS_16StoreDequantRopeINS_12StoreDequantI13__nv_bfloat16Li0EEEEENS_8PingPongEEEvNS_6Params"
+     "ENT_4ArgsE", ("StoreDequantRope", "PingPong")),
+])
+def test_chip_smoke_reads_row_6s_instantiations_apart(mangled, want):
+    """chip_smoke's SASS and ptxas checks tell the rotating GEMM from the
+    plain bf16 one it wraps, and hold it to row 6's schedule."""
+    import chip_smoke
+
+    assert chip_smoke.int8_instantiation(mangled) == want
+    assert chip_smoke.INT8_GEMMS["w8a8"][want[0]] == "w8a8"
+
+
 def test_csrc_includes_resolve_and_the_dp4a_core_is_gone():
     """Every quoted #include of csrc/ names a file there, and no source
     names the deleted __dp4a core."""

@@ -192,3 +192,71 @@ def test_cpu_forward_launches_no_kernel():
         out = model(pixels)
     assert out.shape == (2, 1, 128) and torch.isfinite(out).all()
     assert {**tq.launch_counts, **tflash.launch_counts} == before
+
+
+def _calibrated_small(sequence_parallel_axis=None, quantize=True, static=True):
+    """A 128-wide, 2-head (hd 64) bf16 backbone of 128 tokens a window, its
+    denses calibrated static int8 (or dynamic, or float), and its pixels."""
+    kw = dict(crop_size=128, patch_size=16, tubelet_size=2, frames_per_clip=4, hidden_size=128,
+              num_layers=2, num_heads=2, mlp_ratio=2.0)
+    model = tv.VJEPA2Backbone(tv.VJEPA2Config(**kw, quantize=quantize,
+                                              sequence_parallel_axis=sequence_parallel_axis),
+                              token_pool=True).init_random(torch.Generator().manual_seed(0))
+    pixels = torch.from_numpy(_pixels(3, (2, 4, 128, 128, 3)))
+    if quantize and static:
+        calibrate = {} if sequence_parallel_axis is None else {"sequence_parallel_axis": None}
+        plain = tv.VJEPA2Backbone(dataclasses.replace(model.cfg, **calibrate), token_pool=True)
+        plain.load_state_dict(model.state_dict())
+        tq.calibrate_quant_scales(plain, pixels, margin=1.5)
+        model.load_state_dict(plain.state_dict())
+        model.set_quant_static()
+    return model, pixels
+
+
+@pytest.mark.parametrize("path", ["static", "observing", "dynamic", "float"])
+def test_plain_paths_rotate_with_apply_rope(path):
+    """On the CPU, in calibration's observing pass, with dynamic scales and
+    with float denses, ``project`` rotates q and k with ``_apply_rope``
+    (twice a layer) and no kernel launches."""
+    from unittest import mock
+
+    model, pixels = _calibrated_small(quantize=path != "float", static=path == "static")
+    before = {**tq.launch_counts, **tflash.launch_counts}
+    with mock.patch.object(tv, "_apply_rope", wraps=tv._apply_rope) as rope, torch.no_grad():
+        if path == "observing":
+            tq.calibrate_quant_scales(model, pixels)
+        else:
+            model(pixels)
+    assert rope.call_count == 2 * model.cfg.num_layers
+    assert {**tq.launch_counts, **tflash.launch_counts} == before
+
+
+@pytest.mark.parametrize("sequence_parallel", [False, True])
+def test_rotating_dense_route_equals_apply_rope_route(sequence_parallel):
+    """Where the query and key take the w8a8 kernel (here its plain version,
+    the device check lifted), ``project`` hands them the rotary tables and
+    calls no ``_apply_rope``; the states equal those of the dense followed
+    by ``_apply_rope`` bit for bit, also over two sequence-parallel shards
+    (tables sliced at each shard's token offset)."""
+    from unittest import mock
+
+    from algonauts2025_tpu_torch.parallel import local_mesh
+
+    model, pixels = _calibrated_small("seq" if sequence_parallel else None)
+    kw = {"mesh": local_mesh(2, "seq", "cpu")} if sequence_parallel else {}
+
+    def on_card(self, x):
+        return self.static_scale and not self.observing
+
+    with mock.patch.object(tv._QDense, "runs_kernel", on_card), torch.no_grad():
+        with mock.patch.object(tv, "_apply_rope", wraps=tv._apply_rope) as rope, \
+                mock.patch.object(tv, "int8_matmul_fused", wraps=tq.int8_matmul_fused) as dense:
+            rotated = model(pixels, **kw)
+        assert rope.call_count == 0
+        tables = [call.kwargs["rope"] for call in dense.call_args_list if call.kwargs["rope"] is not None]
+        assert len(tables) == 2 * model.cfg.num_layers * (2 if sequence_parallel else 1)
+        assert {tuple(cos.shape) for cos, _ in tables} == {(64 if sequence_parallel else 128, 64)}
+        with mock.patch.object(tv.VJEPA2Attention, "_rotates_in_kernel", lambda self, x, hd: False):
+            plain = model(pixels, **kw)
+    assert rotated.shape == (model.cfg.num_layers + 1, 2, 128) and torch.isfinite(rotated).all()
+    assert torch.equal(rotated, plain)
