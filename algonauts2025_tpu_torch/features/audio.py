@@ -9,6 +9,13 @@ zero-padded to a multiple of ``bucket_seconds``, with the padding masked
 out of the mel statistics and the attention, as the JAX package does to
 bound its compiled shapes.
 
+Under a profiler chunk k's stages are spans (``utils.profiling.span``):
+``audio.upload#<k>``, ``audio.resample#<k>``, ``audio.mel#<k>``,
+``audio.backbone#<k>`` (the conformer's ``conformer.*`` inside),
+``audio.frames#<k>`` and ``audio.fetch#<k>``.  ``TorchAudioBackbone.counts``
+counts the chunks, their valid 50 Hz frames and the padded frames the
+buckets add.
+
 ``encode_sound_stream`` takes ``(waveform, rate, duration)`` chunks; the
 pydantic ``Wav2VecBert`` feature feeds it from ``Sound`` events (or the wav
 demuxed beside a ``Video``) and caches per (filepath, offset, duration).
@@ -30,6 +37,7 @@ from ..models.backbones.wav2vec_bert import Wav2VecBertBackbone, Wav2VecBertConf
 from ..ops.mel import log_mel_features, log_mel_features_masked
 from ..ops.resample import resample_poly
 from ..runtime import default_device
+from ..utils.profiling import span
 from .base import LayeredFeatureBase
 
 __all__ = [
@@ -80,9 +88,21 @@ class TorchAudioBackbone:
         self.model = model.to(self.device).eval()
         #: distinct (bucket samples, n_out_max) shapes run so far
         self.bucket_shapes: set[tuple[int, int]] = set()
+        #: chunks encoded on the 2 Hz grid, their valid 50 Hz frames and the
+        #: frames their buckets' padding added (``reset_counts`` zeroes them)
+        self.counts: dict[str, int] = {}
+        self.reset_counts()
+
+    def reset_counts(self) -> None:
+        self.counts.update(chunks=0, frames=0, padded_frames=0)
 
     def _wav(self, wav_16k) -> torch.Tensor:
         return torch.as_tensor(wav_16k, dtype=torch.float32).to(self.device)
+
+    def _count(self, t_valid: int, t_run: int) -> None:
+        self.counts["chunks"] += 1
+        self.counts["frames"] += t_valid
+        self.counts["padded_frames"] += t_run - t_valid
 
     @torch.no_grad()
     def hidden_states(self, wav_16k) -> np.ndarray:
@@ -90,31 +110,49 @@ class TorchAudioBackbone:
         return self.model(log_mel_features(self._wav(wav_16k))[None])[:, 0].cpu().numpy()
 
     @torch.no_grad()
+    def states_2hz(self, wav: torch.Tensor, n_out: int, bucket_samples: int | None = None,
+                   tag: str = "") -> torch.Tensor:
+        """(L+1, D, n_out) hidden stack of a 16 kHz waveform on the device,
+        resampled to the output grid there: at the exact length, or with
+        ``bucket_samples`` zero-padded to it, the mel normalization and the
+        conformer's attention masking out the padding (so the values match
+        the exact-length call within float tolerance).  Its stages are the
+        spans ``audio.mel<tag>``, ``audio.backbone<tag>`` and
+        ``audio.frames<tag>``."""
+        n = wav.shape[-1]
+        mask = None
+        with span(f"audio.mel{tag}"):
+            if bucket_samples is None:
+                feats = log_mel_features(wav)
+                t_valid = feats.shape[0]
+            else:
+                if bucket_samples < n:
+                    raise ValueError(f"bucket {bucket_samples} smaller than wav {n}")
+                n_out_max = max(n_out, int(bucket_samples / TARGET_SR * OUTPUT_HZ))
+                self.bucket_shapes.add((bucket_samples, n_out_max))
+                feats, t_valid = log_mel_features_masked(F.pad(wav, (0, bucket_samples - n)), n)
+                mask = (torch.arange(feats.shape[0], device=self.device) < t_valid)[None]
+        with span(f"audio.backbone{tag}"):
+            states = self.model(feats[None], attention_mask=mask)[:, 0]  # (L+1, T50 or T50pad, D)
+        with span(f"audio.frames{tag}"):
+            if bucket_samples is None:
+                idx = _frame_index(n_out, np.float32(t_valid / n_out), t_valid)
+            else:
+                idx = _frame_index(n_out_max, np.float32(t_valid) / np.float32(max(n_out, 1)), t_valid)[:n_out]
+            out = states[:, torch.from_numpy(idx).to(self.device)].transpose(1, 2)
+        self._count(t_valid, states.shape[1])
+        return out
+
     def hidden_states_2hz(self, wav_16k, n_out: int) -> np.ndarray:
         """(L+1, D, n_out) hidden stack resampled to the output grid on the device."""
-        states = self.model(log_mel_features(self._wav(wav_16k))[None])[:, 0]  # (L+1, T50, D)
-        t50 = states.shape[1]
-        idx = _frame_index(n_out, np.float32(t50 / n_out), t50)
-        return states[:, torch.from_numpy(idx).to(self.device)].transpose(1, 2).cpu().numpy()
+        return self.states_2hz(self._wav(wav_16k), n_out).cpu().numpy()
 
-    @torch.no_grad()
     def hidden_states_2hz_bucketed(self, wav_16k, n_out: int, bucket_samples: int) -> np.ndarray:
         """Bucketed variant: the wav is zero-padded to ``bucket_samples``; the
         mel normalization and the conformer's attention mask out the
         padding, so the values match the exact-length call within float
         tolerance."""
-        wav = self._wav(wav_16k)
-        n = wav.shape[-1]
-        if bucket_samples < n:
-            raise ValueError(f"bucket {bucket_samples} smaller than wav {n}")
-        n_out_max = max(n_out, int(bucket_samples / TARGET_SR * OUTPUT_HZ))
-        self.bucket_shapes.add((bucket_samples, n_out_max))
-        feats, t_valid = log_mel_features_masked(F.pad(wav, (0, bucket_samples - n)), n)
-        mask = (torch.arange(feats.shape[0], device=self.device) < t_valid)[None]
-        states = self.model(feats[None], attention_mask=mask)[:, 0]  # (L+1, T50pad, D)
-        ratio = np.float32(t_valid) / np.float32(max(n_out, 1))
-        idx = _frame_index(n_out_max, ratio, t_valid)[:n_out]
-        return states[:, torch.from_numpy(idx).to(self.device)].transpose(1, 2).cpu().numpy()
+        return self.states_2hz(self._wav(wav_16k), n_out, bucket_samples).cpu().numpy()
 
 
 class TinyAudioBackbone(TorchAudioBackbone):
@@ -188,18 +226,23 @@ def encode_sound_stream(
     resampled to 16 kHz on the device unless it is there already; ``n_out =
     max(1, round(duration * 2))`` steps of the 2 Hz grid.  With
     ``bucket_seconds`` the waveform is padded up to a multiple of it (at
-    least one); 0 runs the exact length."""
-    for wav, sfreq, duration in chunks:
-        wav = torch.as_tensor(np.asarray(wav, dtype=np.float32)).to(backbone.device)
+    least one); 0 runs the exact length.  Chunk k's stages are the spans
+    ``audio.upload#<k>``, ``audio.resample#<k>``, those of
+    ``TorchAudioBackbone.states_2hz`` and ``audio.fetch#<k>``."""
+    for k, (wav, sfreq, duration) in enumerate(chunks):
+        with span(f"audio.upload#{k}"):
+            wav = torch.as_tensor(np.asarray(wav, dtype=np.float32)).to(backbone.device)
         if int(sfreq) != TARGET_SR:
-            wav = resample_poly(wav, int(sfreq), TARGET_SR)
+            with span(f"audio.resample#{k}"):
+                wav = resample_poly(wav, int(sfreq), TARGET_SR)
         timepoints = max(1, int(np.round(np.multiply(duration, OUTPUT_HZ))))
+        bucket = None
         if bucket_seconds:
             step = int(bucket_seconds * TARGET_SR)
             bucket = max(step, -(-wav.shape[-1] // step) * step)
-            latents = backbone.hidden_states_2hz_bucketed(wav, timepoints, bucket)
-        else:
-            latents = backbone.hidden_states_2hz(wav, timepoints)
+        latents = backbone.states_2hz(wav, timepoints, bucket, tag=f"#{k}")
+        with span(f"audio.fetch#{k}"):
+            latents = latents.cpu().numpy()
         yield latents.astype(np.float32)
 
 

@@ -17,7 +17,10 @@ pins a (T, 73, T) tensor); here it is a gather of the same values.  The
 scanned ``(L, ...)`` params of the JAX package are one module per layer
 (``models.convert.wav2vec_bert_params_to_torch`` unstacks them).  The
 audio path has no Pallas kernel, so nothing here launches one of the
-port's kernels.
+port's kernels.  Under a profiler a forward's stages are spans
+(``utils.profiling.span``): ``conformer.embed``, then per layer
+``conformer.ffn1``, ``conformer.attention``, ``conformer.conv`` and
+``conformer.ffn2`` (the last with the final LayerNorm).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...utils.profiling import span
 
 __all__ = ["Wav2VecBertConfig", "Wav2VecBertBackbone", "params_from_hf", "W2V_BERT_2_0"]
 
@@ -160,11 +165,15 @@ class ConformerLayer(nn.Module):
 
     def forward(self, x, attn_bias, pad_mask, rel_index):
         dtype = self.cfg.dtype
-        x = x + 0.5 * self.ffn1(_layer_norm(x, self.ffn1_layer_norm, dtype))
-        x = x + self.self_attn(_layer_norm(x, self.self_attn_layer_norm, dtype), attn_bias, rel_index)
-        x = x + self.conv_module(x, pad_mask)
-        x = x + 0.5 * self.ffn2(_layer_norm(x, self.ffn2_layer_norm, dtype))
-        return _layer_norm(x, self.final_layer_norm, dtype)
+        with span("conformer.ffn1"):
+            x = x + 0.5 * self.ffn1(_layer_norm(x, self.ffn1_layer_norm, dtype))
+        with span("conformer.attention"):
+            x = x + self.self_attn(_layer_norm(x, self.self_attn_layer_norm, dtype), attn_bias, rel_index)
+        with span("conformer.conv"):
+            x = x + self.conv_module(x, pad_mask)
+        with span("conformer.ffn2"):
+            x = x + 0.5 * self.ffn2(_layer_norm(x, self.ffn2_layer_norm, dtype))
+            return _layer_norm(x, self.final_layer_norm, dtype)
 
 
 class Wav2VecBertBackbone(nn.Module):
@@ -203,14 +212,15 @@ class Wav2VecBertBackbone(nn.Module):
         projection and in the conv module, and padded keys get a -1e30
         bias (padded query rows are computed, not zeroed)."""
         cfg = self.cfg
-        x = self.fp_projection(_layer_norm(input_features, self.fp_layer_norm, cfg.dtype))
-        b, t, _ = x.shape
-        pad_mask = attn_bias = None
-        if attention_mask is not None:
-            pad_mask = attention_mask.bool()
-            x = torch.where(pad_mask[..., None], x, 0.0)
-            attn_bias = torch.where(pad_mask[:, None, None, :], 0.0, -1e30)
-        rel_index = relative_positions(t, cfg.left_max_pos, cfg.right_max_pos, device=x.device)
+        with span("conformer.embed"):
+            x = self.fp_projection(_layer_norm(input_features, self.fp_layer_norm, cfg.dtype))
+            b, t, _ = x.shape
+            pad_mask = attn_bias = None
+            if attention_mask is not None:
+                pad_mask = attention_mask.bool()
+                x = torch.where(pad_mask[..., None], x, 0.0)
+                attn_bias = torch.where(pad_mask[:, None, None, :], 0.0, -1e30)
+            rel_index = relative_positions(t, cfg.left_max_pos, cfg.right_max_pos, device=x.device)
         out = torch.empty((cfg.num_layers + 1, b, t, cfg.hidden_size), device=x.device)
         out[0] = x
         for i, layer in enumerate(self.layers):
