@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "DTYPE_CODES", "build", "build_all", "nvcc_command", "load",
+__all__ = ["CSRC", "BUILD_DIR", "DTYPE_CODES", "build", "build_all", "nvcc_command", "cuda_tool", "load",
            "function", "check_cuda", "build_logs"]
 
 #: the dtype argument of every kernel's C interface
@@ -46,6 +46,12 @@ def _nvcc() -> str:
         if path and Path(path).exists():
             return path
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def cuda_tool(name: str) -> str:
+    """The path of the CUDA toolkit's program ``name`` (``nvcc``,
+    ``cuobjdump``, ...), beside the nvcc that builds the kernels."""
+    return str(Path(_nvcc()).with_name(name))
 
 
 def _library_path(name: str) -> Path:

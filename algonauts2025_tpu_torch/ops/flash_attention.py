@@ -39,6 +39,7 @@ aligned bases and b, h and t strides in multiples of 8 elements
 from __future__ import annotations
 
 import ctypes
+import re
 
 import torch
 
@@ -47,7 +48,7 @@ from . import _cuda
 __all__ = ["flash_attention", "fast_flash_attention", "flash_attention_packed",
            "bounded_attention_plain", "fast_attention_plain", "flash_attention_plain",
            "packed_attention_plain", "check_tma_layout", "tc_block", "tc_launch_regs",
-           "launch_counts"]
+           "tc_instantiation", "TC_INSTANTIATIONS", "launch_counts"]
 
 #: kernel launches since the last reset, counted where the kernel launches
 launch_counts: dict[str, int] = {"flash_attention": 0, "flash_masked": 0, "flash_fast": 0,
@@ -199,6 +200,17 @@ def tc_block(head_dim: int, masked: bool = False) -> dict[str, int]:
         + 1024,
         "consumer_regs": consumer_regs, "producer_regs": producer_regs, "launch_regs": tc_launch_regs(threads),
     }
+
+
+#: every bf16 instantiation of ``flash_tc_kernel``: (head dim it runs at,
+#: masked, bf16 scores), as ``launch_typed`` instantiates them
+TC_INSTANTIATIONS = [(d, masked, b16) for d in (64, 128) for masked, b16 in ((0, 0), (0, 1), (1, 0))]
+
+
+def tc_instantiation(name: str) -> tuple[int, ...]:
+    """(head dim, masked, bf16 scores) of a mangled ``flash_tc_kernel`` name:
+    its template arguments, as ``TC_INSTANTIATIONS`` lists them."""
+    return tuple(int(x) for x in re.findall(r"L[ib](\d+)E", name.split("flash_tc_kernel", 1)[1])[:3])
 
 
 def check_tma_layout(name: str, shape, strides, data_ptr: int, element_size: int) -> None:

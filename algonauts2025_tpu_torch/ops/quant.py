@@ -18,6 +18,7 @@ conversion of the kernels does.
 from __future__ import annotations
 
 import ctypes
+import re
 import typing as tp
 
 import numpy as np
@@ -39,8 +40,11 @@ __all__ = [
     "quantize_dense_params",
     "calibrate_quant_scales",
     "gemm_block",
+    "schedule_block",
+    "gemm_instantiation",
     "gemm_l2_read_bytes",
     "INT8_GEMMS",
+    "INT8_EPILOGUES",
     "launch_counts",
 ]
 
@@ -70,6 +74,16 @@ _SCHEDULES = {"Cooperative": (2, 2, 256, 4, 240), "PingPong": (2, 1, 128, 6, 240
 #: the schedule of each GEMM of the two int8 kernels, as w8a8.cu and
 #: int8_mlp.cu instantiate them: row 6's GEMM, and fc1 and fc2 of row 7
 INT8_GEMMS = {"w8a8": "PingPong", "fc1": "PingPongPairs", "fc2": "Cooperative"}
+#: the GEMM instantiations of the int8 core in each int8 kernel's library,
+#: one an epilogue, by their epilogue as ``gemm_instantiation`` reads it
+#: (w8a8: dequant by sx to fp32 and bf16, and the bf16 one rotated; the MLP:
+#: fc1's gelu/requant, fc2's dequant by sh to fp32 and bf16), and the GEMM
+#: of ``INT8_GEMMS`` each serves, which gives its schedule
+INT8_EPILOGUES = {
+    "w8a8": {"StoreDequantIfLi0EE": "w8a8", "StoreDequantI13__nv_bfloat16Li0EE": "w8a8",
+             "StoreDequantRope": "w8a8"},
+    "int8_mlp": {"StoreGeluQuant": "fc1", "StoreDequantIfLi1EE": "fc2", "StoreDequantI13__nv_bfloat16Li1EE": "fc2"},
+}
 #: the core's tile rows, stage depth, the registers setmaxnreg leaves a
 #: producer thread, and the bytes of one staged piece of the output (64 rows
 #: x 128 bytes)
@@ -78,8 +92,14 @@ _BM, _BK, _PRODUCER_REGS, _PIECE_BYTES = 128, 128, 24, 64 * 128
 
 def gemm_block(gemm: str) -> dict[str, tp.Any]:
     """The block the int8 core launches for ``gemm`` ("w8a8", "fc1" or
-    "fc2"): a pure function mirroring ``i8wg::Schedule`` and ``i8wg::Layout``
-    of its schedule.
+    "fc2"): ``schedule_block`` of its schedule."""
+    return schedule_block(INT8_GEMMS[gemm])
+
+
+def schedule_block(schedule: str) -> dict[str, tp.Any]:
+    """The block the int8 core launches on ``schedule`` ("Cooperative",
+    "PingPong" or "PingPongPairs"): a pure function mirroring
+    ``i8wg::Schedule`` and ``i8wg::Layout``.
 
     ``smem_bytes`` counts the A and Bt rings, two staged output pieces a
     consumer warpgroup, the full and empty mbarrier of each stage and the
@@ -89,7 +109,6 @@ def gemm_block(gemm: str) -> dict[str, tp.Any]:
     split must not exceed."""
     from .flash_attention import tc_launch_regs
 
-    schedule = INT8_GEMMS[gemm]
     warpgroups, team, bn, stages, consumer_regs = _SCHEDULES[schedule]
     threads = 128 * (warpgroups + 1)
     rows = _BM // team
@@ -101,6 +120,15 @@ def gemm_block(gemm: str) -> dict[str, tp.Any]:
         "consumer_regs": consumer_regs, "producer_regs": _PRODUCER_REGS,
         "launch_regs": tc_launch_regs(threads),
     }
+
+
+def gemm_instantiation(name: str) -> tuple[str, str | None]:
+    """(epilogue, schedule) of a mangled ``gemm_kernel`` name of the int8
+    core, the epilogue as ``INT8_EPILOGUES`` names it; the schedule is None
+    in a core without schedules."""
+    epilogue = re.search(r"(StoreGeluQuant|StoreDequantRope|StoreDequantI\w+?Li\dEE)", name).group(1)
+    schedule = re.search(r"(Cooperative|PingPongPairs|PingPong)", name)
+    return epilogue, schedule and schedule.group(1)
 
 
 def gemm_l2_read_bytes(m: int, n: int, k: int, tile_m: int, tile_n: int) -> int:

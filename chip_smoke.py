@@ -31,7 +31,8 @@ Phases (any failure exits non-zero):
    int8 kernels' quantize passes and GEMMs are timed apart under
    ``torch.profiler``, beside the bytes their tiles read from L2.  The
    flash rows' bounds count their exponentials at the MUFU's rate beside
-   the operations and the bytes.  Two mutants of the masked flash
+   the operations and the bytes (every bound from the benchmark's frozen
+   peak table, ``benchmark/common/peaks.py``).  Two mutants of the masked flash
    kernel, built from patched copies of its source under
    ``_build/mutants`` (one ignores the key lengths, one ignores
    ``causal``), must fail the same check.  The bench-only fast
@@ -139,14 +140,12 @@ zeroed, and it is read just after.  The line before the last is the JSON
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import gc
 import io
 import itertools
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -198,54 +197,26 @@ from algonauts2025_tpu_torch.ops import quant
 from algonauts2025_tpu_torch.ops.layer_agg import aggregate_layers
 from algonauts2025_tpu_torch.ops.resample import resample_poly
 from algonauts2025_tpu_torch.parallel import get_mesh, init_distributed, local_mesh, pipelined_llama_states
-from algonauts2025_tpu_torch.scripts import bench_attn
+from algonauts2025_tpu_torch.scripts import bench_attn, kernel_tools
+from algonauts2025_tpu_torch.scripts.kernel_tools import (
+    VITG_D, VITG_F, VITG_M, kmajor, mlp_case, parts_ms, rel_l2, time_ms, w8a8_case,
+)
 from algonauts2025_tpu_torch.utils.profiling import step_summary
 from algonauts2025_tpu_torch.training import (
     BrainTrainer, OptimConfig, TrainerConfig, build_loss, build_metric,
 )
+from benchmark.common.peaks import bound_s, peaks_for
 
 SEED = 0
 # (B, H, T, Dh) of the trunk's attention at the flagship: hidden 3072, 8 heads
 FLAGSHIP = (16, 8, 298, 384)
 TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 
-# published dense peaks (NVIDIA data sheets, which give the tensor-core
-# rates with sparsity at twice these): fp32 without tensor cores, bf16 and
-# int8 tensor cores, memory bytes/s
-PEAKS = {
-    "PCIe": {"float32": 51e12, "bfloat16": 756e12, "int8": 1513e12, "bytes": 2.0e12},
-    "NVL": {"float32": 60e12, "bfloat16": 835e12, "int8": 1670e12, "bytes": 3.9e12},
-    "SXM": {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12, "bytes": 3.35e12},
-}
 COUNTERS = (attn.launch_counts, flash.launch_counts, quant.launch_counts)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def peaks_for(name: str) -> dict[str, float]:
-    for key in ("PCIe", "NVL"):
-        if key in name:
-            return PEAKS[key]
-    if "H100" not in name:
-        log(f"note: no peak table for {name!r}; bounds use the H100 SXM data sheet")
-    return PEAKS["SXM"]
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def reset_counts() -> None:
@@ -259,45 +230,15 @@ def launch_counts() -> dict[str, int]:
     return {key: n for counts in COUNTERS for key, n in counts.items()}
 
 
-def bound(flops: float, nbytes: float, peak_ops: float, peaks: dict[str, float],
-          exps: float = 0.0) -> tuple[float, str]:
-    """The least time for the work: the largest of operations over the peak
-    rate of their type, bytes (each input read once, each output written
-    once) over the memory rate and, for attention, its ``exps``
-    exponentials over the MUFU's ex2 rate (``peaks["exp"]``), in ms, and
-    which of them binds ("operations", "bytes" or "exp")."""
-    terms = {"operations": flops / peak_ops, "bytes": nbytes / peaks["bytes"]}
-    if exps:
-        terms["exp"] = exps / peaks["exp"]
-    by = max(terms, key=terms.get)
-    return 1e3 * terms[by], by
-
-
-#: MUFU ex2 results a clock per SM on sm_90 (the CUDA C++ Programming
-#: Guide's table of arithmetic instruction throughput)
-MUFU_EX2_PER_SM_CLOCK = 16
-
-
-def mufu_rate() -> float:
-    """The card's ex2 a second: 16 a clock per SM x the SM count x the
-    card's max SM clock (``nvidia-smi`` clocks.max.sm)."""
-    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                         check=True, capture_output=True, text=True).stdout.split()[0]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rate = MUFU_EX2_PER_SM_CLOCK * sms * float(mhz) * 1e6
-    log(f"MUFU ex2 rate: {MUFU_EX2_PER_SM_CLOCK} a clock per SM x {sms} SMs x {mhz} MHz = {rate / 1e12:.3f} T/s")
-    return rate
-
-
 def flash_bound(flops: float, nbytes: float, exps: float, peaks: dict[str, float]) -> tuple[float, str, str]:
-    """A bf16 flash row's bound (``bound`` with its exponentials), the term
-    that binds as a kernel record names it (the ex2 are operations, of the
-    MUFU), and the three terms for the log."""
-    bound_ms, bound_by = bound(flops, nbytes, peaks["bfloat16"], peaks, exps)
+    """A bf16 flash row's bound in ms (``bound_s`` with its exponentials),
+    the term that binds as a kernel record names it (the ex2 are operations,
+    of the MUFU), and the three terms for the log."""
+    seconds, bound_by = bound_s(flops, nbytes, peaks["bfloat16"], peaks, exps)
     terms = (f"bound by {bound_by}: operations {1e3 * flops / peaks['bfloat16']:.4f} ms "
              f"({flops / 1e12:.4f} TFLOP), bytes {1e3 * nbytes / peaks['bytes']:.4f} ms ({nbytes / 1e6:.1f} MB), "
              f"exp {1e3 * exps / peaks['exp']:.4f} ms ({exps / 1e9:.4f} G ex2)")
-    return bound_ms, "operations" if bound_by == "exp" else bound_by, terms
+    return 1e3 * seconds, "operations" if bound_by == "exp" else bound_by, terms
 
 
 def kernel_record(name, source, replaces, err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by):
@@ -310,63 +251,36 @@ def kernel_record(name, source, replaces, err, kernel_ms, plain_ms, library_ms, 
 def card() -> str:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs a CUDA card")
-    line = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    line = kernel_tools.card_line()
     log(f"card: {line}")
     return line
 
 
 def build_kernels() -> dict[str, Path]:
     """Build every source of csrc and, beside them, the MUTANTS of the flash
-    source (all nvcc processes at once); returns the mutants' libraries."""
+    source, patched copies under _build/mutants (all nvcc processes at once);
+    returns the mutants' libraries."""
     t0 = time.time()
-    builds = start_mutant_builds()
+    source, jobs = {"flash_attention.cu": _cuda.CSRC / "flash_attention.cu"}, {}
+    for name, (line, patched) in MUTANTS.items():
+        folder = _cuda.BUILD_DIR / "mutants" / name
+        if kernel_tools.write_patched(source, [("flash_attention.cu", line, patched)], folder):
+            raise SystemExit(f"mutant {name}: {line!r} is not one line of flash_attention.cu")
+        jobs[name] = (folder / "flash_attention.cu", folder / "libflash_attention.so")
+    started = kernel_tools.start_builds(jobs)
     try:
         libs = _cuda.build_all()
     finally:
-        mutant_logs = {name: (proc.communicate()[0], proc.returncode) for name, (_, proc) in builds.items()}
-    log(f"built {sorted(libs)} and mutants {sorted(builds)} in {time.time() - t0:.1f} s")
+        mutants = kernel_tools.finish_builds(started)
+    log(f"built {sorted(libs)} and mutants {sorted(mutants)} in {time.time() - t0:.1f} s")
     for name, text in _cuda.build_logs.items():
         for line in text.splitlines():
             if any(word in line for word in ("registers", "spill", "error", "warning")):
                 log(f"  nvcc {name}: {line.strip()}")
-    for name, (text, returncode) in mutant_logs.items():
-        if returncode != 0:
-            raise SystemExit(f"mutant {name} did not build:\n{text}")
-    return {name: library for name, (library, _) in builds.items()}
-
-
-def sass_functions(library: Path) -> list[tuple[str, str]]:
-    """(mangled name, SASS body) of every kernel in ``library``."""
-    cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(library)], check=True, capture_output=True,
-                          text=True).stdout
-    return [tuple(f.split(None, 1)) for f in re.split(r"\n\s*Function : ", sass)[1:]]
-
-
-#: the GEMM instantiations of the int8 core in each int8 kernel's library,
-#: one per epilogue (as mangled; w8a8: dequant by sx to fp32 and bf16, and
-#: the bf16 one rotated; the MLP: fc1's gelu/requant, fc2's dequant by sh
-#: to fp32 and bf16), and the GEMM of ``quant.INT8_GEMMS`` each serves,
-#: which gives its schedule
-INT8_GEMMS = {
-    "w8a8": {"StoreDequantIfLi0EE": "w8a8", "StoreDequantI13__nv_bfloat16Li0EE": "w8a8",
-             "StoreDequantRope": "w8a8"},
-    "int8_mlp": {"StoreGeluQuant": "fc1", "StoreDequantIfLi1EE": "fc2", "StoreDequantI13__nv_bfloat16Li1EE": "fc2"},
-}
-
-
-def int8_instantiation(name: str) -> tuple[str, str]:
-    """(epilogue, schedule) of a mangled ``gemm_kernel`` name of the int8 core."""
-    epilogue = re.search(r"(StoreGeluQuant|StoreDequantRope|StoreDequantI\w+?Li\dEE)", name).group(1)
-    return epilogue, re.search(r"(Cooperative|PingPongPairs|PingPong)", name).group(1)
-
-
-def tc_instantiation(name: str) -> tuple[int, ...]:
-    """(head dim, masked, bf16 scores) of a mangled ``flash_tc_kernel`` name."""
-    return tuple(int(x) for x in re.findall(r"L[ib](\d+)E", name.split("flash_tc_kernel", 1)[1])[:3])
+    for name, build in mutants.items():
+        if build.code != 0:
+            raise SystemExit(f"mutant {name} did not build:\n{build.report}")
+    return {name: build.library for name, build in mutants.items()}
 
 
 def ptxas_report(name: str) -> str:
@@ -380,87 +294,48 @@ def ptxas_report(name: str) -> str:
     return _cuda.build_logs[name]
 
 
-def ptxas_kernels(report: str) -> dict[str, dict[str, int]]:
-    """Per kernel (mangled name) of a ptxas report: its registers at launch
-    and the bytes of its spill stores and loads."""
-    kernels, name = {}, None
-    for line in report.splitlines():
-        if found := re.search(r"Compiling entry function '(\w+)'", line):
-            name = found.group(1)
-            kernels[name] = {}
-        elif name and (found := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            kernels[name]["spill_stores"], kernels[name]["spill_loads"] = map(int, found.groups())
-        elif name and (found := re.search(r"Used (\d+) registers", line)):
-            kernels[name]["registers"] = int(found.group(1))
-    return kernels
+def check_instantiations(library: Path, report: str, kernel: str, decode, mma: str, want: dict) -> None:
+    """The ``kernel`` instantiations of ``library`` (by ``decode``'s key) are
+    those of ``want`` and run their products as warpgroup MMAs (``mma`` in
+    their SASS) with the register reallocation (USETMAXREG, the SASS of
+    ``setmaxnreg``, once for the consumers and once for the producer).  In
+    ptxas's ``report`` each spills nothing and holds ``want[key]`` registers
+    at launch (fewer would leave the consumers' ``setmaxnreg.inc`` waiting
+    for ever, so this runs before any launch), and ptxas neither ignores the
+    setmaxnreg nor serialises the wgmma."""
+    sass = {decode(name): kernel_tools.sass_ops(body, (mma, "USETMAXREG"))
+            for name, body in kernel_tools.sass_functions(library).items() if kernel in name}
+    log(f"SASS of {library.name}: {mma} and USETMAXREG per {kernel} instantiation {sass}")
+    if set(sass) != set(want) or not all(ops[mma] and ops["USETMAXREG"] >= 2 for ops in sass.values()):
+        raise SystemExit(f"the {kernel} instantiations of {library.name} are {sorted(sass)}, not {sorted(want)}, "
+                         f"or do not all run wgmma ({mma}) and reallocate registers (USETMAXREG)")
+    ptxas = {decode(name): info for name, info in kernel_tools.ptxas_kernels(report).items() if kernel in name}
+    log(f"ptxas of {library.name}, per {kernel} instantiation: {ptxas}")
+    if remarks := kernel_tools.ptxas_remarks(report):
+        raise SystemExit(f"ptxas ignored setmaxnreg or serialised wgmma in {library.name}:\n" + "\n".join(remarks))
+    if set(ptxas) != set(want):
+        raise SystemExit(f"ptxas reported {sorted(ptxas)} in {library.name}, the SASS holds {sorted(want)}")
+    for key, info in ptxas.items():
+        if info.get("spills") != 0 or info.get("registers") != want[key]:
+            raise SystemExit(f"{kernel}{key} of {library.name}: {info}; it must spill nothing and hold "
+                             f"{want[key]} registers at launch")
 
 
 def check_sass(flash_library: Path, int8_libraries: dict[str, Path]) -> None:
-    """The tensor-core kernels run their products as warpgroup MMAs: each
-    bf16 instantiation of ``flash_tc_kernel`` holds HGMMA instructions, and
-    each GEMM instantiation of the int8 core (``int8_wgmma.cuh``
-    ``gemm_kernel``) in each int8 kernel's library holds IGMMA, the SASS of
-    ``wgmma.mma_async ... .s32.s8.s8``.
-
-    Each bf16 flash instantiation also holds the register reallocation
-    (USETMAXREG, the SASS of ``setmaxnreg``, once for the consumers and once
-    for the producer), spills nothing (ptxas's report), holds at launch the
-    registers that its setmaxnreg split assumes (fewer would leave the
-    consumers' ``setmaxnreg.inc`` waiting for ever, so this runs before any
-    launch), and ptxas neither ignores the setmaxnreg nor serialises the
-    wgmma.  So does each int8 GEMM instantiation, whose schedule is the one
-    ``quant.INT8_GEMMS`` names for its GEMM and whose launch registers are
-    ``quant.gemm_block``'s."""
-    sass = {tc_instantiation(name): body for name, body in sass_functions(flash_library) if "flash_tc_kernel" in name}
-    hgmma = {key: body.count("HGMMA") for key, body in sass.items()}
-    setmaxreg = {key: body.count("USETMAXREG") for key, body in sass.items()}
-    log(f"SASS of {flash_library.name}: HGMMA per bf16 instantiation (head dim, masked, bf16 scores) {hgmma}; "
-        f"USETMAXREG {setmaxreg}")
-    if len(hgmma) != 6 or not all(hgmma.values()):
-        raise SystemExit("the bf16 flash instantiations do not all run wgmma (HGMMA)")
-    if not all(n >= 2 for n in setmaxreg.values()):
-        raise SystemExit("the bf16 flash instantiations do not all reallocate registers (USETMAXREG)")
-
-    report = ptxas_report("flash_attention")
-    ptxas = {tc_instantiation(name): info for name, info in ptxas_kernels(report).items() if "flash_tc_kernel" in name}
-    log(f"ptxas of flash_attention.cu, per bf16 instantiation: {ptxas}")
-    warned = [line.strip() for line in report.splitlines()
-              if "setmaxnreg" in line.lower() or "serializ" in line.lower()]
-    if warned:
-        raise SystemExit("ptxas ignored setmaxnreg or serialised wgmma in flash_attention.cu:\n" + "\n".join(warned))
-    if sorted(ptxas) != sorted(sass):
-        raise SystemExit(f"ptxas reported {sorted(ptxas)}, the SASS holds {sorted(sass)}")
-    for key, info in ptxas.items():
-        want = flash.tc_block(key[0])["launch_regs"]
-        if info.get("spill_stores") != 0 or info.get("spill_loads") != 0 or info.get("registers") != want:
-            raise SystemExit(f"flash_tc_kernel{key}: {info}; it must spill nothing and hold {want} registers "
-                             "at launch")
+    """``check_instantiations`` of the tensor-core kernels: the six bf16
+    instantiations of ``flash_tc_kernel`` run HGMMA with ``flash.tc_block``'s
+    launch registers; the GEMM instantiations of the int8 core
+    (``int8_wgmma.cuh`` ``gemm_kernel``) in each int8 kernel's library, one
+    an epilogue of ``quant.INT8_EPILOGUES``, run IGMMA (the SASS of
+    ``wgmma.mma_async ... .s32.s8.s8``) on the schedule ``quant.INT8_GEMMS``
+    names for the GEMM each serves, with ``quant.gemm_block``'s launch
+    registers."""
+    check_instantiations(flash_library, ptxas_report("flash_attention"), "flash_tc_kernel", flash.tc_instantiation,
+                         "HGMMA", {key: flash.tc_block(key[0])["launch_regs"] for key in flash.TC_INSTANTIATIONS})
     for name, library in int8_libraries.items():
-        sass = {int8_instantiation(fn): body for fn, body in sass_functions(library) if "gemm_kernel" in fn}
-        igmma = {key: body.count("IGMMA") for key, body in sass.items()}
-        setmaxreg = {key: body.count("USETMAXREG") for key, body in sass.items()}
-        log(f"SASS of {library.name}: IGMMA per int8 GEMM instantiation (epilogue, schedule) {igmma}; "
-            f"USETMAXREG {setmaxreg}")
-        want = {(epilogue, quant.INT8_GEMMS[gemm]) for epilogue, gemm in INT8_GEMMS[name].items()}
-        if set(sass) != want or not all(igmma.values()):
-            raise SystemExit(f"the int8 GEMM instantiations of {name} are {sorted(sass)}, not {sorted(want)}, "
-                             "or do not all run wgmma (IGMMA)")
-        if not all(n >= 2 for n in setmaxreg.values()):
-            raise SystemExit(f"the int8 GEMM instantiations of {name} do not all reallocate registers (USETMAXREG)")
-        report = ptxas_report(name)
-        ptxas = {int8_instantiation(fn): info for fn, info in ptxas_kernels(report).items() if "gemm_kernel" in fn}
-        log(f"ptxas of {name}.cu, per int8 GEMM instantiation: {ptxas}")
-        warned = [line.strip() for line in report.splitlines()
-                  if "setmaxnreg" in line.lower() or "serializ" in line.lower()]
-        if warned:
-            raise SystemExit(f"ptxas ignored setmaxnreg or serialised wgmma in {name}.cu:\n" + "\n".join(warned))
-        if set(ptxas) != want:
-            raise SystemExit(f"ptxas reported {sorted(ptxas)} in {name}.cu, the SASS holds {sorted(want)}")
-        for key, info in ptxas.items():
-            regs = quant.gemm_block(INT8_GEMMS[name][key[0]])["launch_regs"]
-            if info.get("spill_stores") != 0 or info.get("spill_loads") != 0 or info.get("registers") != regs:
-                raise SystemExit(f"gemm_kernel{key} of {name}.cu: {info}; it must spill nothing and hold {regs} "
-                                 "registers at launch")
+        check_instantiations(library, ptxas_report(name), "gemm_kernel", quant.gemm_instantiation, "IGMMA",
+                             {(epilogue, quant.INT8_GEMMS[gemm]): quant.gemm_block(gemm)["launch_regs"]
+                              for epilogue, gemm in quant.INT8_EPILOGUES[name].items()})
 
 
 def qkv(shape, dtype, strided: bool, gen: torch.Generator, device="cuda"):
@@ -523,45 +398,18 @@ def check_attention(peaks: dict[str, float]) -> dict:
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
     flops = 4 * b_ * h_ * t_ * t_ * dh_
     nbytes = 4 * b_ * h_ * t_ * dh_ * q.element_size()
-    by_ops, by_bytes = flops / peaks["float32"], nbytes / peaks["bytes"]
-    bound_ms = 1e3 * max(by_ops, by_bytes)
+    seconds, bound_by = bound_s(flops, nbytes, peaks["float32"], peaks)
+    bound_ms = 1e3 * seconds
     qb, kb, vb = qkv(FLAGSHIP, torch.bfloat16, True, gen)
     bf16_ms = time_ms(lambda: attn._attention_cuda(qb, kb, vb))
-    bf16_bound = 1e3 * max(flops / peaks["bfloat16"], nbytes / 2 / peaks["bytes"])
+    bf16_bound = 1e3 * bound_s(flops, nbytes / 2, peaks["bfloat16"], peaks)[0]
     log(f"attention {FLAGSHIP} fp32: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; {rates(flops, kernel_ms, library_ms, bound_ms)})")
     log(f"attention {FLAGSHIP} bf16: kernel {bf16_ms:.4f} ms, bound {bf16_bound:.4f} ms")
     return kernel_record("attention", "attention.cu",
                          "algonauts2025_tpu/ops/attention.py:80 (_attn_kernel)", flagship_err,
-                         kernel_ms, plain_ms, library_ms, bound_ms,
-                         "operations" if by_ops >= by_bytes else "bytes")
-
-
-# ViT-G at a window batch of 4: (B*N, D) activations, D, MLP width
-VITG_M, VITG_D, VITG_F = 4 * 8192, 1408, 6144
-
-
-def int8_dense(k, n, gen):
-    """Seeded float weights at a dense layer's init scale, quantized per column."""
-    w = torch.randn((k, n), generator=gen, device="cuda") / k**0.5
-    return quant.quantize_weight(w)
-
-
-def rand_bf16(shape, gen):
-    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-
-
-def absmax_scale(x: torch.Tensor) -> torch.Tensor:
-    return (x.float().abs().amax() / 127.0).reshape(())
-
-
-def w8a8_case(m, k, n, x_dtype, gen):
-    """x, the weight with its K-major copy, scale and bias of one dense."""
-    x = torch.randn((m, k), generator=gen, device="cuda").to(x_dtype)
-    w_q, w_s = int8_dense(k, n, gen)
-    bias = 0.1 * torch.randn(n, generator=gen, device="cuda")
-    return x, w_q, w_s, absmax_scale(x), bias, w_q.t().contiguous()
+                         kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
 
 
 def check_w8a8(peaks: dict[str, float]) -> dict:
@@ -621,7 +469,8 @@ def check_w8a8(peaks: dict[str, float]) -> dict:
     library_rm_ms = time_ms(lambda: library(w_q))
     ops = 2 * m * k * n
     nbytes = m * k * 2 + k * n + 8 * n + m * n * 2
-    bound_ms, bound_by = bound(ops, nbytes, peaks["int8"], peaks)
+    seconds, bound_by = bound_s(ops, nbytes, peaks["int8"], peaks)
+    bound_ms = 1e3 * seconds
     log(f"w8a8 ({m}, {k}, {n}) bf16: kernel {kernel_ms:.4f} ms ({ops / kernel_ms / 1e9:.1f} TOP/s, "
         f"{bound_ms / kernel_ms:.3f} of the bound), plain {plain_ms:.4f} ms, _int_mm + quant passes "
         f"{library_ms:.4f} ms with the K-major copy as (K, N) ({ops / library_ms / 1e9:.1f} TOP/s), "
@@ -629,8 +478,8 @@ def check_w8a8(peaks: dict[str, float]) -> dict:
         f"({ops / 1e9:.1f} GOP, {nbytes / 1e6:.1f} MB)")
     xq = torch.clamp(torch.round(x.float() / sxs), -127, 127).to(torch.int8)
     time_int_mm("w8a8", xq, {"(K, N) row-major": w_q, "K-major copy as (K, N)": w_t.t()})
-    parts = int8_parts(profile_run("w8a8 x 10 at ViT-G", lambda: [kernel() for _ in range(10)], 10 * kernel_ms,
-                                   top=4), 10, {"quantize": "quantize_kernel", "GEMM": "gemm_kernel"})
+    parts = parts_ms(profile_run("w8a8 x 10 at ViT-G", lambda: [kernel() for _ in range(10)], 10 * kernel_ms,
+                                 top=4), 10, {"quantize": "quantize_kernel", "GEMM": "gemm_kernel"})
     log(f"w8a8 ({m}, {k}, {n}) a call under the profiler: quantize pass {parts['quantize']:.4f} ms, GEMM "
         f"{parts['GEMM']:.4f} ms ({ops / parts['GEMM'] / 1e9:.1f} TOP/s); " + l2_line("w8a8", m, n, k, nbytes))
     check_w8a8_rope(gen)
@@ -716,35 +565,15 @@ def check_w8a8_rope(gen: torch.Generator) -> None:
         fn = {"plain": plain_epilogue, "rotating": rotating_epilogue, "plain + _apply_rope": apply_rope_after}
         times[label].append(time_ms(fn[label]))
     ms = {label: statistics.mean(v) for label, v in times.items()}
-    parts = int8_parts(profile_run("w8a8 plain and rotating x 10 each at ViT-G",
-                                   lambda: [f() for f in [plain_epilogue, rotating_epilogue] * 10],
-                                   10 * (ms["plain"] + ms["rotating"]), top=4), 10,
-                       {"quantize": "quantize_kernel", "plain GEMM": "gemm_kernel<i8wg::StoreDequant<",
-                        "rotating GEMM": "StoreDequantRope"})
+    parts = parts_ms(profile_run("w8a8 plain and rotating x 10 each at ViT-G",
+                                 lambda: [f() for f in [plain_epilogue, rotating_epilogue] * 10],
+                                 10 * (ms["plain"] + ms["rotating"]), top=4), 10,
+                     {"quantize": "quantize_kernel", "plain GEMM": "gemm_kernel<i8wg::StoreDequant<",
+                      "rotating GEMM": "StoreDequantRope"})
     log(f"w8a8 ({m}, {k}, {n}) bf16, a call (CUDA events, in turns P R A A R P): plain epilogue "
         f"{ms['plain']:.4f} ms, rotating epilogue {ms['rotating']:.4f} ms, plain + _apply_rope "
         f"{ms['plain + _apply_rope']:.4f} ms; under the profiler: GEMM plain {parts['plain GEMM']:.4f} ms, "
         f"rotating {parts['rotating GEMM']:.4f} ms, quantize pass {parts['quantize'] / 2:.4f} ms")
-
-
-def mlp_case(m, k, f, gen):
-    x = rand_bf16((m, k), gen)
-    w1_q, w1_s = int8_dense(k, f, gen)
-    w2_q, w2_s = int8_dense(f, k, gen)
-    b1 = 0.1 * torch.randn(f, generator=gen, device="cuda")
-    b2 = 0.1 * torch.randn(k, generator=gen, device="cuda")
-    sx = absmax_scale(x)
-    sxs = quant._static_scale(sx)
-    h = quant.gelu_erf_approx(quant._dequant(quant._int_matmul(quant._quantize(x.float(), sxs), w1_q),
-                                             sxs, w1_s, b1))
-    sh = absmax_scale(h)
-    return (x, w1_q, w1_s, b1, w2_q, w2_s, b2), sx, sh
-
-
-def kmajor(args) -> dict[str, torch.Tensor]:
-    """The K-major weights that int8_mlp_fused's kernel reads, from
-    ``mlp_case``'s arguments."""
-    return {"w1_kmajor": args[1].t().contiguous(), "w2_kmajor": args[4].t().contiguous()}
 
 
 def time_int_mm(label: str, a: torch.Tensor, weights: dict[str, torch.Tensor]) -> None:
@@ -753,13 +582,6 @@ def time_int_mm(label: str, a: torch.Tensor, weights: dict[str, torch.Tensor]) -
     times = {layout: time_ms(lambda: torch._int_mm(a, w), iters=10) for layout, w in weights.items()}
     log(f"torch._int_mm alone, {label} ({tuple(a.shape)} x {tuple(next(iter(weights.values())).shape)}): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
-
-
-def int8_parts(kernels: list[tuple[str, float, int]], calls: int, names: dict[str, str]) -> dict[str, float]:
-    """ms a call of each part of an int8 kernel, from ``profile_run``'s
-    kernels over ``calls`` calls: ``names`` maps a part to a piece of its
-    kernel's name (the quantize pass, a GEMM by its epilogue)."""
-    return {part: sum(ms for key, ms, _ in kernels if piece in key) / calls for part, piece in names.items()}
 
 
 def l2_line(gemm: str, m: int, n: int, k: int, nbytes: float) -> str:
@@ -788,7 +610,7 @@ def check_int8_mlp(peaks: dict[str, float]) -> dict:
         ref = quant.int8_mlp_fused_plain(*args, sx, sh)
         o, r = out.float(), ref.float()
         err = (o - r).abs().max().item()
-        rel = (torch.linalg.vector_norm(o - r) / torch.linalg.vector_norm(r)).item()
+        rel = rel_l2(o, r)
         unequal = (out != ref).float().mean().item()
         ok = rel <= 1e-3 and err <= 1e-2 * r.abs().max().item()
         log(f"int8_mlp ({m}, {k}, {f}): rel L2 {rel:.3e} (tol 1e-3), max_abs_err {err:.3e} "
@@ -821,15 +643,16 @@ def check_int8_mlp(peaks: dict[str, float]) -> dict:
     library_ms = time_ms(library, iters=10)
     ops = 2 * m * k * f * 2
     nbytes = m * k * 2 + 2 * k * f + 8 * (f + k) + m * k * 2
-    bound_ms, bound_by = bound(ops, nbytes, peaks["int8"], peaks)
+    seconds, bound_by = bound_s(ops, nbytes, peaks["int8"], peaks)
+    bound_ms = 1e3 * seconds
     log(f"int8_mlp ({m}, {k}, {f}) bf16: kernel {kernel_ms:.4f} ms ({ops / kernel_ms / 1e9:.1f} TOP/s), "
         f"plain {plain_ms:.4f} ms, _int_mm + quant/gelu passes {library_ms:.4f} ms "
         f"({ops / library_ms / 1e9:.1f} TOP/s), bound {bound_ms:.4f} ms "
         f"({ops / 1e12:.3f} TOP, {nbytes / 1e6:.1f} MB)")
-    parts = int8_parts(profile_run("int8_mlp x 10 at ViT-G",
-                                   lambda: [quant.int8_mlp_fused(*args, sx, sh, **km) for _ in range(10)],
-                                   10 * kernel_ms, top=4), 10,
-                       {"quantize": "quantize_kernel", "fc1": "StoreGeluQuant", "fc2": "StoreDequant"})
+    parts = parts_ms(profile_run("int8_mlp x 10 at ViT-G",
+                                 lambda: [quant.int8_mlp_fused(*args, sx, sh, **km) for _ in range(10)],
+                                 10 * kernel_ms, top=4), 10,
+                     {"quantize": "quantize_kernel", "fc1": "StoreGeluQuant", "fc2": "StoreDequant"})
     gemm_ops = 2 * m * k * f
     log(f"int8_mlp ({m}, {k}, {f}) a call under the profiler: quantize pass {parts['quantize']:.4f} ms, "
         f"fc1 {parts['fc1']:.4f} ms ({gemm_ops / parts['fc1'] / 1e9:.1f} TOP/s), fc2 {parts['fc2']:.4f} ms "
@@ -864,7 +687,7 @@ def flash_case(label: str, out: torch.Tensor, ref: torch.Tensor, dtype: torch.dt
     Returns whether it held and the max-abs error."""
     o, r = out.float(), ref.float()
     err = (o - r).abs().max().item()
-    rel = (torch.linalg.vector_norm(o - r) / torch.linalg.vector_norm(r)).item()
+    rel = rel_l2(o, r)
     limit = min(TOL[dtype], 1e-2 * r.abs().max().item())
     ok = (out.dtype == dtype and out.shape == ref.shape and torch.isfinite(out).all().item()
           and err <= limit and rel <= rel_limits[dtype])
@@ -989,7 +812,7 @@ def flash_masked_cases(label: str) -> tuple[bool, float]:
         ref = flash.flash_attention_plain(q, k, v, causal, lens)
         o, r = out.float(), ref.float()
         err = (o - r).abs().max().item()
-        rel = (torch.linalg.vector_norm(o - r) / torch.linalg.vector_norm(r)).item()
+        rel = rel_l2(o, r)
         limit = min(MASKED_TOL[dtype], 1e-2 * r.abs().max().item())
         zero_rows = [i for i, n in enumerate(lengths or ()) if n == 0]
         zeros = all(torch.equal(o[i], torch.zeros_like(o[i])) for i in zero_rows)
@@ -1005,33 +828,6 @@ def flash_masked_cases(label: str) -> tuple[bool, float]:
     return all_ok, main_err
 
 
-def start_mutant_builds() -> dict[str, tuple[Path, subprocess.Popen]]:
-    """Start one nvcc per MUTANTS entry on a patched copy of the flash
-    source under _build/mutants (the checkout's sources stay as they are)."""
-    source = (_cuda.CSRC / "flash_attention.cu").read_text()
-    builds = {}
-    for name, (line, patched) in MUTANTS.items():
-        if source.count(line) != 1:
-            raise SystemExit(f"mutant {name}: {line!r} is not one line of flash_attention.cu")
-        folder = _cuda.BUILD_DIR / "mutants" / name
-        folder.mkdir(parents=True, exist_ok=True)
-        (folder / "flash_attention.cu").write_text(source.replace(line, patched))
-        library = folder / "libflash_attention.so"
-        builds[name] = (library, subprocess.Popen(
-            _cuda.nvcc_command(folder / "flash_attention.cu", library),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    return builds
-
-
-def mutant_function(library: ctypes.CDLL):
-    """A stand-in for ``_cuda.function`` that types the symbols of ``library``."""
-    def function(name, symbol, argtypes, restype=ctypes.c_int):
-        fn = getattr(library, symbol)
-        fn.argtypes, fn.restype = list(argtypes), restype
-        return fn
-    return function
-
-
 def check_flash_masked(peaks: dict[str, float], mutants: dict[str, Path]) -> dict:
     """The masked flash kernel through the Llama backbone's wrapper against
     its plain version; then each mutant must fail the same cases."""
@@ -1039,7 +835,7 @@ def check_flash_masked(peaks: dict[str, float], mutants: dict[str, Path]) -> dic
     if not ok:
         raise SystemExit("the masked flash attention kernel disagrees with its plain version")
     for name, library in mutants.items():
-        with mock.patch.object(flash._cuda, "function", mutant_function(ctypes.CDLL(str(library)))):
+        with mock.patch.object(_cuda, "function", kernel_tools.stand_in({"flash_attention": library})):
             caught = not flash_masked_cases(f"mutant {name}")[0]
         log(f"mutant {name}: {'fails the check, ok' if caught else 'PASSES the check'}")
         if not caught:
@@ -1377,8 +1173,8 @@ def video_path(n_windows: int = 10, window_batch: int = 4) -> dict:
         raise SystemExit("the video path did not launch the kernels as expected")
     kernels = profile_run(f"one ViT-G window batch of {window_batch}",
                           lambda: encode(np.stack(windows[:window_batch])), statistics.mean(batch_s[1:]) * 1e3, top=12)
-    parts = int8_parts(kernels, 1, {"quantize passes": "quantize_kernel", "row 6 GEMM": "StoreDequant<__nv_bfloat16, 0>",
-                                    "fc1": "StoreGeluQuant", "fc2": "StoreDequant<__nv_bfloat16, 1>"})
+    parts = parts_ms(kernels, 1, {"quantize passes": "quantize_kernel", "row 6 GEMM": "StoreDequant<__nv_bfloat16, 0>",
+                                  "fc1": "StoreGeluQuant", "fc2": "StoreDequant<__nv_bfloat16, 1>"})
     log("int8 kernels of the window batch under the profiler: "
         + ", ".join(f"{part} {ms:.3f} ms" for part, ms in parts.items()))
 
@@ -1608,20 +1404,14 @@ def profile_run(label: str, run, unprofiled_ms: float, top: int = 10) -> list[tu
     kernels by name, and their sum against the same work's unprofiled host
     time (the device-busy share; the rest is the device's idle share).
     Returns (name, device ms in all, launches) of every kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels = kernel_tools.device_kernels(run)
+    busy_ms = sum(ms for _, ms, _ in kernels)
     log(f"{label} under torch.profiler: device kernels {busy_ms:.3f} ms in "
-        f"{sum(e.count for e in kernels)} launches, {busy_ms / unprofiled_ms:.3f} of the unprofiled "
+        f"{sum(count for _, _, count in kernels)} launches, {busy_ms / unprofiled_ms:.3f} of the unprofiled "
         f"{unprofiled_ms:.3f} ms; top kernels by device time:")
-    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
-    return [(e.key, e.self_device_time_total / 1e3, e.count) for e in kernels]
+    for key, ms, count in sorted(kernels, key=lambda kernel: kernel[1], reverse=True)[:top]:
+        log(f"  {ms:9.3f} ms {count:6d}x  {key[:100]}")
+    return kernels
 
 
 @torch.no_grad()
@@ -2934,10 +2724,10 @@ def main() -> None:
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
         }}), flush=True)
         return
-    peaks = {**peaks_for(kind), "exp": mufu_rate()}
+    peaks = peaks_for(kind)
     torch.manual_seed(SEED)
     mutants = build_kernels()
-    check_sass(_cuda.build("flash_attention"), {name: _cuda.build(name) for name in INT8_GEMMS})
+    check_sass(_cuda.build("flash_attention"), {name: _cuda.build(name) for name in quant.INT8_EPILOGUES})
     kernels = [check_attention(peaks), check_flash(peaks), check_flash_masked(peaks, mutants),
                check_fast(peaks), check_packed(peaks), check_w8a8(peaks), check_int8_mlp(peaks)]
     check_small_against_cpu()

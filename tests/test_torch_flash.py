@@ -24,6 +24,7 @@ from algonauts2025_tpu_torch.models.backbones import llama, vjepa2
 from algonauts2025_tpu_torch.ops import _cuda
 from algonauts2025_tpu_torch.ops import flash_attention as tf
 from algonauts2025_tpu_torch.scripts import flash_levers
+from algonauts2025_tpu_torch.scripts import kernel_tools as kt
 from algonauts2025_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -250,16 +251,17 @@ def test_tma_layout_ignores_strides_of_size_one_dims():
 
 
 @pytest.mark.parametrize("mutant", sorted(chip_smoke.MUTANTS))
-def test_mutant_line_occurs_once_in_the_source(mutant):
+def test_mutant_line_occurs_once_in_the_source(mutant, tmp_path):
     """chip_smoke.py builds each mutant by replacing one line of the flash
-    source; the line must be there exactly once, or the build fails."""
-    line, _ = chip_smoke.MUTANTS[mutant]
-    assert (_cuda.CSRC / "flash_attention.cu").read_text().count(line) == 1
+    source (``kernel_tools.write_patched``); the line must be there exactly
+    once, or the build fails."""
+    line, patched = chip_smoke.MUTANTS[mutant]
+    source = _cuda.CSRC / "flash_attention.cu"
+    assert kt.write_patched({source.name: source}, [(source.name, line, patched)], tmp_path) == []
+    assert (tmp_path / source.name).read_text() == source.read_text().replace(line, patched)
 
 
-#: every bf16 instantiation of flash_tc_kernel: (head dim it runs at, masked,
-#: bf16 scores), as launch_typed instantiates them
-TC_INSTANTIATIONS = [(d, masked, b16) for d in (64, 128) for masked, b16 in ((0, 0), (0, 1), (1, 0))]
+TC_INSTANTIATIONS = tf.TC_INSTANTIATIONS
 
 
 @pytest.mark.parametrize("head_dim,masked,bf16_scores", TC_INSTANTIATIONS)
@@ -318,13 +320,12 @@ def test_tc_block_refuses_head_dims_the_kernel_does_not_take(head_dim):
 @pytest.mark.parametrize("lever", sorted(flash_levers.LEVERS))
 def test_lever_registers_follow_its_block(lever):
     """scripts/flash_levers.py launches a lever's build only if ptxas gave
-    it the registers its setmaxnreg split assumes: tc_block's, or, for a
-    lever with other warpgroups at d = 64, those of that block."""
-    regs = flash_levers._launch_regs(lever)
+    it the registers its setmaxnreg split assumes: tc_block's, or, for the
+    lever with two consumer warpgroups at d = 64, those of that block."""
+    regs = {d: flash_levers.launch_regs(lever, (d, 0, 0)) for d in (64, 128)}
     assert regs[128] == tf.tc_block(128)["launch_regs"] == 168
-    warpgroups = flash_levers.LEVERS[lever][1]
-    assert regs[64] == (tf.tc_block(64)["launch_regs"] if warpgroups is None else
-                        tf.tc_launch_regs(128 * (warpgroups + 1)))
+    assert regs[64] == (tf.tc_launch_regs(128 * 3) if lever == flash_levers.TWO_WARPGROUPS else
+                        tf.tc_block(64)["launch_regs"])
 
 
 def test_levers_leave_out_what_the_source_lacks(tmp_path):
@@ -332,15 +333,16 @@ def test_levers_leave_out_what_the_source_lacks(tmp_path):
     than failing the run; a baseline source is built as it is."""
     source = (_cuda.CSRC / "flash_attention.cu").read_text()
     lever = "items in plain rounds (block i takes items i, i + gridDim.x, ...)"
-    (old, new), = flash_levers.LEVERS[lever][0]
+    (_, old, new), = flash_levers.LEVERS[lever]
     (tmp_path / "flash_attention.cu").write_text(source.replace(old, new))
     baseline = tmp_path / "parent.cu"
     baseline.write_text("// another version\n")
-    with mock.patch.object(flash_levers._cuda, "CSRC", tmp_path):
-        texts = flash_levers._sources({"parent": baseline})
-    assert set(texts) == set(flash_levers.LEVERS) - {lever} | {"parent"}
-    assert texts["parent"] == "// another version\n"
-    assert texts["as built"] == (tmp_path / "flash_attention.cu").read_text()
+    with mock.patch.object(kt._cuda, "CSRC", tmp_path):
+        folders = kt.write_builds(flash_levers.FAMILY, kt._baselines(flash_levers.FAMILY, [f"parent={baseline}"]),
+                                  tmp_path / "builds")
+    assert set(folders) == set(flash_levers.LEVERS) - {lever} | {"parent"}
+    assert (folders["parent"] / "flash_attention.cu").read_text() == "// another version\n"
+    assert (folders["as built"] / "flash_attention.cu").read_text() == (tmp_path / "flash_attention.cu").read_text()
 
 
 @pytest.mark.parametrize("spec", ["parent", "={source}", "parent={missing}", "as built={source}"])

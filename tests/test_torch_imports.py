@@ -27,6 +27,7 @@ EXCEPTIONS = {
     "PIL": ("Image events' payload", {"core/events.py"}),
     "wandb": ("the optional wandb mirror of the metrics, absent is fine",
               {"experiment/tracking.py"}),
+    "benchmark": ("the frozen peak table and bound", {"chip_smoke.py"}),
 }
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "algonauts2025_tpu", "h5py", "Levenshtein",
              "rapidfuzz"}

@@ -208,19 +208,28 @@ def test_rope_gemm_is_row_6s_gemm_on_its_schedule():
     assert "out_dtype != 1 || tokens < 1 || M % tokens || head_dim < 2 || head_dim > 128 || 128 % head_dim" in text
 
 
-@pytest.mark.parametrize("mangled,want", [
+@pytest.mark.parametrize("mangled,want,gemm", [
     ("_ZN4i8wg11gemm_kernelINS_12StoreDequantI13__nv_bfloat16Li0EEENS_8PingPongEEEvNS_6ParamsEPKf",
-     ("StoreDequantI13__nv_bfloat16Li0EE", "PingPong")),
+     ("StoreDequantI13__nv_bfloat16Li0EE", "PingPong"), "w8a8"),
     ("_ZN4i8wg11gemm_kernelINS_16StoreDequantRopeINS_12StoreDequantI13__nv_bfloat16Li0EEEEENS_8PingPongEEEvNS_6Params"
-     "ENT_4ArgsE", ("StoreDequantRope", "PingPong")),
+     "ENT_4ArgsE", ("StoreDequantRope", "PingPong"), "w8a8"),
+    ("_ZN4i8wg11gemm_kernelIN12_GLOBAL__N_114StoreGeluQuantENS_11CooperativeEEEvNS_6ParamsEPKf",
+     ("StoreGeluQuant", "Cooperative"), "fc1"),
+    ("_ZN4i8wg11gemm_kernelINS_12StoreDequantIfLi1EEEEEvNS_6ParamsEPKf", ("StoreDequantIfLi1EE", None), "fc2"),
+    ("_ZN4i8wg11gemm_kernelINS_12StoreDequantIfLi0EEENS_8PingPongEEEvNS_6ParamsENT_4ArgsE",
+     ("StoreDequantIfLi0EE", "PingPong"), "w8a8"),
+    ("_ZN4i8wg11gemm_kernelINS_12StoreDequantI13__nv_bfloat16Li1EEENS_11CooperativeEEEvNS_6ParamsENT_4ArgsE",
+     ("StoreDequantI13__nv_bfloat16Li1EE", "Cooperative"), "fc2"),
 ])
-def test_chip_smoke_reads_row_6s_instantiations_apart(mangled, want):
-    """chip_smoke's SASS and ptxas checks tell the rotating GEMM from the
-    plain bf16 one it wraps, and hold it to row 6's schedule."""
-    import chip_smoke
-
-    assert chip_smoke.int8_instantiation(mangled) == want
-    assert chip_smoke.INT8_GEMMS["w8a8"][want[0]] == "w8a8"
+def test_gemm_instantiation_names(mangled, want, gemm):
+    """``gemm_instantiation`` reads (epilogue, schedule) from a mangled
+    ``gemm_kernel`` name, None for a core without schedules, and tells the
+    rotating GEMM from the plain bf16 one it wraps; ``INT8_EPILOGUES`` names
+    the GEMM of each epilogue, which gives the schedule chip_smoke.py's SASS
+    and ptxas checks hold it to."""
+    assert tq.gemm_instantiation(mangled) == want
+    library = "w8a8" if gemm == "w8a8" else "int8_mlp"
+    assert tq.INT8_EPILOGUES[library][want[0]] == gemm
 
 
 def test_csrc_includes_resolve_and_the_dp4a_core_is_gone():
