@@ -1,8 +1,9 @@
-// Flash attention for the V-JEPA2 and Llama backbones and the attention
-// bench, sm_90a: four C entry points over two tile loops, one for each
-// dtype.  bf16 runs on the tensor cores (wgmma, TMA); fp32 stays on the
-// CUDA cores, since the port's fp32 contract (TF32 off) rules the tensor
-// cores out for fp32 and no main path runs fp32 attention.
+// Flash attention for the V-JEPA2, Llama and w2v-BERT backbones and the
+// attention bench, sm_90a: five C entry points over three tile loops, one
+// for each dtype of the four flash_forward* entries and one for the
+// relative-key attention.  bf16 runs on the tensor cores (wgmma, TMA); fp32
+// stays on the CUDA cores, since the port's fp32 contract (TF32 off) rules
+// the tensor cores out for fp32 and no main path runs fp32 attention.
 //
 // flash_forward (the video backbone's long non-causal attention).
 // Replaces: algonauts2025_tpu/ops/flash_attention.py::_bounded_kernel (the
@@ -97,6 +98,30 @@
 // (zero columns leave the dot products as they are).  The layout contract
 // that TMA needs (16-byte aligned bases, b, h and t strides in multiples of
 // 8 elements) is checked by the wrapper.
+//
+// flash_relkey_forward (the w2v-BERT conformer's self-attention).
+// Replaces no TPU kernel: the JAX package leaves the score pipeline of its
+// relative_key attention to XLA (q k^T, the banded one-hot _rel_onehot and
+// an einsum that place q . E by distance, the softmax, P.V).  It computes
+// RelKeyAttention's function for head dim 64: s = (q.k + q.E[clamp(r - l,
+// -left, right) + left]) / 8 in fp32 (q.E by fp32 FMAs over the fp32 table
+// E; the 1/8 is exact, so (a + b) / 8 is the reference's a/8 + b/8), the
+// softmax over the keys r < lengths[b] in fp32, and the normalised
+// probability exp(s - m) / l rounded to bf16 before P.V with fp32 sums.
+// The plain version materialised ten (H, T, T) fp32 or int64 tensors a
+// layer; at a 60 s chunk (16 heads, T = 3000) the call is 36.9 GFLOP of q
+// k^T and P.V and 144 M exponentials, 37 and 34 us at the bf16 and MUFU
+// peaks: bound by the tensor cores and the MUFU alike.  Rounding the
+// normalised p needs m and l before P.V, so each item sweeps K twice
+// (flash_relkey_kernel): 1.5x the products and 2x the exponentials of one
+// sweep, on a persistent, warp-specialised block built from
+// flash_tc_kernel's parts (TMA ring, mbarriers, setmaxnreg, wgmma at d = 64)
+// with its own consumer loop, since flash_tc_kernel rounds the unnormalised
+// p, and two consumer warpgroups (rk's block).  The bias costs one add a
+// score: outside the band of distances [-left, right] a tile of 64 rows and
+// 128 keys takes one q.E value a row, and only the ~2 band tiles of a query
+// tile gather theirs from q.E in shared memory, computed in each item's
+// prologue.
 //
 // fp32 design (flash_fwd_kernel).  One 256-thread block per (b*h, 64-query
 // tile); K and V stream through shared memory in 64-key tiles with the
@@ -1136,6 +1161,428 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// bf16 relative-key attention: w2v-BERT's conformer (flash_relkey_forward)
+
+namespace rk {
+
+using tc::kKeys;
+using tc::kLog2e;
+using tc::kPanelBytes;
+
+// The block: kGroups consumer warpgroups of 64 query rows (an item is
+// kItemRows rows of one head) and one producer warpgroup; kSlots q tiles,
+// a ring of kRing K and V tiles, the fp32 distance table (at most kMaxPos
+// rows of 64) and each consumer warpgroup's q.E rows (kQdStride floats a
+// row: an odd stride spreads the rows' writes over the banks).  Shared
+// memory in bytes from a 1024-aligned base.  Two consumer warpgroups of 240
+// registers a thread (and 24 a producer thread, after setmaxnreg): with
+// three of 160, as flash_tc_kernel runs at d = 64, the band tiles' gather
+// under the live S and O made ptxas spill.
+constexpr int kGroups = 2;
+constexpr int kItemRows = 64 * kGroups;
+constexpr int kThreads = 128 * kGroups + 128;
+constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+constexpr int kSlots = 2;
+constexpr int kRing = 4;
+constexpr int kMaxPos = 80;
+constexpr int kQdStride = kMaxPos + 1;
+constexpr int kQBytes = kItemRows * kPanelBytes;
+constexpr int kTileBytes = kKeys * kPanelBytes;
+constexpr int kOffK = kSlots * kQBytes;
+constexpr int kOffV = kOffK + kRing * kTileBytes;
+constexpr int kOffE = kOffV + kRing * kTileBytes;
+constexpr int kOffQd = kOffE + kMaxPos * 64 * 4;
+constexpr int kOffBar = kOffQd + kGroups * 64 * kQdStride * 4;
+// q full and empty for each slot, then full and empty barriers of K and of
+// V for each stage; + the alignment slack
+constexpr int kBytes = kOffBar + 8 * (2 * kSlots + 4 * kRing) + 1024;
+static_assert(kBytes <= tc::kMaxSmem, "the block's shared memory");
+static_assert(kGroups * 128 * kConsumerRegs + 128 * kProducerRegs <= kThreads * kLaunchRegs,
+              "setmaxnreg must stay within the registers the block holds");
+
+struct RelKeyParams {
+  CUtensorMap q, k, v, o;  // over (d, t, h, b); o in 64-row boxes
+  const float* table;      // (n_pos, 64) fp32, row-major
+  const int* lengths;      // (B,) key lengths, or null
+  int BH, H, T, n_pos, left;
+};
+
+// The bias of a (64-row, 128-key) tile: one distance for every key
+// (kLeftEdge: every r - l <= -left; kRightEdge: every r - l >= right, so
+// each row adds its first or last q.E) or the band between, gathered key
+// by key.
+enum TileKind { kBand = 0, kLeftEdge = 1, kRightEdge = 2 };
+
+__device__ __forceinline__ int tile_kind(int q0, int k0, int left, int right) {
+  if (k0 + kKeys - 1 - q0 <= -left) return kLeftEdge;
+  if (k0 - (q0 + 63) >= right) return kRightEdge;
+  return kBand;
+}
+
+// Item k of the (query tile, head) list, head by head, so that the blocks
+// at work at once share K and V in L2.
+__device__ __forceinline__ tc::Item item_at(const RelKeyParams& p, int k) {
+  const int n_q = (p.T + kItemRows - 1) / kItemRows;
+  const int bh = k / n_q;
+  tc::Item it;
+  it.b = bh / p.H;
+  it.h = bh % p.H;
+  it.q0 = (k % n_q) * kItemRows;
+  it.valid = p.lengths != nullptr ? max(0, min(p.lengths[it.b], p.T)) : p.T;
+  it.n_tiles = (it.valid + kKeys - 1) / kKeys;
+  return it;
+}
+
+// qd = q.E for this warpgroup's 64 query rows (q in its slot, TMA's
+// 128-byte swizzle: the 16-byte chunk c of row i at c ^ (i % 8)), one fp32
+// FMA a product over d in order (q's bf16 values are exact in fp32; the
+// table stays fp32).  Thread i of the warpgroup takes rows i % 16 + 16 k
+// (k < kQdRows) and distances i / 16 + 8 m (m < kQdCols), so that each
+// table value it reads from shared memory serves kQdRows rows: the reads,
+// not the FMAs, bound this prologue.
+constexpr int kQdRows = 4, kQdCols = kMaxPos / 8;
+__device__ __forceinline__ void project_rows(const uint8_t* q_rows, const float* table, float* qd, int n_pos,
+                                             int wtid) {
+  const int r0 = wtid % 16, j0 = wtid / 16;
+  float acc[kQdRows][kQdCols];
+#pragma unroll
+  for (int k = 0; k < kQdRows; ++k)
+#pragma unroll
+    for (int m = 0; m < kQdCols; ++m) acc[k][m] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float x[kQdRows][8];
+#pragma unroll
+    for (int k = 0; k < kQdRows; ++k) {
+      const int row = r0 + 16 * k;
+      const uint4 chunk = *reinterpret_cast<const uint4*>(q_rows + row * kPanelBytes + ((c ^ (row & 7)) * 16));
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(&chunk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+        x[k][2 * e] = f.x;
+        x[k][2 * e + 1] = f.y;
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kQdCols; ++m) {
+      // distances from n_pos on read the table's unused rows; their sums are not stored
+      const float4* e = reinterpret_cast<const float4*>(table + (j0 + 8 * m) * 64 + 8 * c);
+      const float4 e0 = e[0], e1 = e[1];
+#pragma unroll
+      for (int k = 0; k < kQdRows; ++k) {
+        float a = acc[k][m];
+        a = fmaf(x[k][0], e0.x, a);
+        a = fmaf(x[k][1], e0.y, a);
+        a = fmaf(x[k][2], e0.z, a);
+        a = fmaf(x[k][3], e0.w, a);
+        a = fmaf(x[k][4], e1.x, a);
+        a = fmaf(x[k][5], e1.y, a);
+        a = fmaf(x[k][6], e1.z, a);
+        acc[k][m] = fmaf(x[k][7], e1.w, a);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kQdRows; ++k)
+#pragma unroll
+    for (int m = 0; m < kQdCols; ++m)
+      if (j0 + 8 * m < n_pos) qd[(r0 + 16 * k) * kQdStride + j0 + 8 * m] = acc[k][m];
+}
+
+// The scores of one tile before the 1/sqrt(d) scale: sc = q.k plus the
+// bias q.E[clamp(col - row, -left, right) + left] of each score, in place
+// (the 1/8 scale is exact, so it goes with the exponent's factor); keys
+// from ``valid`` on (only in a ``tail`` tile) are -inf.  Element i of the
+// fragment is row row0 + 8 * ((i >> 1) & 1), key k0 + 8 * (i >> 2) + c2 +
+// (i & 1); qd0 and qd1 are the thread's two rows of q.E.
+__device__ __forceinline__ void add_bias(float (&sc)[64], const float* qd0, const float* qd1, int kind, int k0,
+                                         int row0, int c2, int left, int right, int valid, bool tail) {
+  if (kind == kBand) {
+    // clamp(d, -left, right) + left = clamp(d + left, 0, left + right)
+    const int j0 = k0 + c2 - row0 + left;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] += (r ? qd1 : qd0)[min(max(j0 + 8 * (i >> 2) + (i & 1) - 8 * r, 0), left + right)];
+    }
+  } else {
+    const int j = kind == kLeftEdge ? 0 : left + right;
+    const float b0 = qd0[j], b1 = qd1[j];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] += (i >> 1) & 1 ? b1 : b0;
+  }
+  if (tail) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if (k0 + 8 * (i >> 2) + c2 + (i & 1) >= valid) sc[i] = -INFINITY;
+  }
+}
+
+// Two sweeps of K per item.  Sweep 1 runs S = Q K^T + bias tile by tile
+// and keeps each row's running maximum m and the sum l of exp(s - m) in
+// fp32 (no V).  Sweep 2 runs S again (the same wgmma in the same order
+// gives the same scores), forms p = exp(s - m) / l in fp32, rounds it to
+// bf16 and accumulates O += P V with wgmma, with no rescaling: the
+// probabilities are rounded after they are normalised, as the configuration
+// states.  In sweep 2 a warpgroup issues S_j and P_{j-1} V_{j-1} together
+// and runs the softmax of S_j while the other warpgroups' products run.
+// The producer streams each item's K tiles for sweep 1, then its K and V
+// tiles for sweep 2, through rings that run on across items.  Each item
+// begins with q.E of its rows into shared memory (project_rows); a tile
+// outside the band of distances [-left, right] takes one q.E value a row,
+// and the about two band tiles of a 64-row query tile gather theirs.
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1) flash_relkey_kernel(const __grid_constant__ RelKeyParams p) {
+  static_assert(kD == 64, "the relative-key kernel runs at head dim 64");
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t q_s = base, k_s = base + kOffK, v_s = base + kOffV;
+  const uint32_t q_full = base + kOffBar, q_empty = q_full + 8 * kSlots;
+  const uint32_t full_k = q_empty + 8 * kSlots, full_v = full_k + 8 * kRing;
+  const uint32_t empty_k = full_v + 8 * kRing, empty_v = empty_k + 8 * kRing;
+  float* table = reinterpret_cast<float*>(smem + kOffE);
+  const int n_items = (p.T + kItemRows - 1) / kItemRows * p.BH;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int right = p.n_pos - 1 - p.left;
+
+  for (int i = tid; i < p.n_pos * 16; i += kThreads)
+    reinterpret_cast<float4*>(table)[i] = reinterpret_cast<const float4*>(p.table)[i];
+  if (tid == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      tc::mbar_init(q_full + 8 * s, 1);
+      tc::mbar_init(q_empty + 8 * s, kGroups * 4);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < kRing; ++s) {
+      tc::mbar_init(full_k + 8 * s, 1);
+      tc::mbar_init(full_v + 8 * s, 1);
+      tc::mbar_init(empty_k + 8 * s, kGroups * 4);
+      tc::mbar_init(empty_v + 8 * s, kGroups * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kGroups * 4) {
+    // ---- producer warpgroup: one thread loads each item's q tile once its
+    // slot is released, then K for sweep 1 and K and V for sweep 2, each
+    // tile as soon as its stage is free ----
+    tc::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kGroups * 128) {
+      int gk = 0, gv = 0;  // K and V tiles loaded by this block
+      for (int t = 0, k; (k = tc::block_item(t, n_items)) >= 0; ++t) {
+        const tc::Item it = item_at(p, k);
+        const int slot = t % kSlots;
+        if (t >= kSlots) tc::mbar_wait(q_empty + 8 * slot, (t / kSlots - 1) & 1);
+        tc::mbar_expect_tx(q_full + 8 * slot, kQBytes);
+        tc::tma_load(q_s + slot * kQBytes, &p.q, q_full + 8 * slot, 0, it.q0, it.h, it.b);
+        for (int sweep = 0; sweep < 2; ++sweep) {
+          for (int j = 0; j < it.n_tiles; ++j, ++gk) {
+            const int s = gk % kRing;
+            if (gk >= kRing) tc::mbar_wait(empty_k + 8 * s, (gk / kRing - 1) & 1);
+            tc::mbar_expect_tx(full_k + 8 * s, kTileBytes);
+            tc::tma_load(k_s + s * kTileBytes, &p.k, full_k + 8 * s, 0, j * kKeys, it.h, it.b);
+            if (sweep == 0) continue;
+            const int sv = gv % kRing;
+            if (gv >= kRing) tc::mbar_wait(empty_v + 8 * sv, (gv / kRing - 1) & 1);
+            tc::mbar_expect_tx(full_v + 8 * sv, kTileBytes);
+            tc::tma_load(v_s + sv * kTileBytes, &p.v, full_v + 8 * sv, 0, j * kKeys, it.h, it.b);
+            ++gv;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups ----
+  tc::setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4, wtid = tid % 128;
+  const int c2 = 2 * (lane % 4);
+  const int lrow = 16 * (warp % 4) + lane / 4;  // this thread's rows lrow, lrow + 8 of the warpgroup's 64
+  float* qd = reinterpret_cast<float*>(smem + kOffQd) + wg * 64 * kQdStride;
+  const float* qd0 = qd + lrow * kQdStride;
+  const float* qd1 = qd0 + 8 * kQdStride;
+  constexpr float kExpScale = 0.125f * kLog2e;  // d^-1/2 = 1/8, then exp as ex2
+  int gk = 0, gv = 0;  // K and V tiles consumed
+  // an item's q slot takes its O for the TMA store and is released once the
+  // store has read it: by three warps of a warpgroup after the epilogue, by
+  // the first (whose thread 0 issued the store) during the next item
+  int pending = -1;
+  for (int t = 0, k; (k = tc::block_item(t, n_items)) >= 0; ++t) {
+    const tc::Item it = item_at(p, k);
+    const int slot = t % kSlots, n = it.n_tiles, valid = it.valid;
+    const int q0w = it.q0 + 64 * wg, row0 = q0w + lrow;
+    const uint32_t q_wg = q_s + slot * kQBytes + 64 * wg * kPanelBytes, q_done = q_empty + 8 * slot;
+    tc::mbar_wait(q_full + 8 * slot, (t / kSlots) & 1);
+    project_rows(smem + slot * kQBytes + 64 * wg * kPanelBytes, table, qd, p.n_pos, wtid);
+    tc::bar_sync(1 + wg, 128);
+    if (pending >= 0) {
+      tc::bulk_wait<true>();
+      tc::mbar_arrive(q_empty + 8 * pending);
+      pending = -1;
+    }
+
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    if (n > 0) {
+      float sc[64];
+      // ---- sweep 1: the row maxima m and the sums l of exp(s - m) (this
+      // thread's share; the 4 threads of a row meet after the sweep) ----
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll 1
+      for (int j = 0; j < n; ++j, ++gk) {
+        const int s = gk % kRing, k0 = j * kKeys;
+        tc::mbar_wait(full_k + 8 * s, (gk / kRing) & 1);
+        tc::wgmma_fence();
+        tc::issue_scores<64, kItemRows>(sc, q_wg, k_s + s * kTileBytes);
+        tc::wgmma_wait();
+        tc::fence_regs(sc);
+        if (lane == 0) tc::mbar_arrive(empty_k + 8 * s);
+        add_bias(sc, qd0, qd1, tile_kind(q0w, k0, p.left, right), k0, row0, c2, p.left, right, valid,
+                 k0 + kKeys > valid);
+        // every tile keeps its first key, so each row's maximum is finite
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        float shift[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r]);
+          l[r] *= tc::ex2((m[r] - m_new) * kExpScale);  // 0 on the first tile
+          m[r] = m_new;
+          shift[r] = m_new * kExpScale;
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) l[(i >> 1) & 1] += tc::ex2(fmaf(sc[i], kExpScale, -shift[(i >> 1) & 1]));
+      }
+      // p = exp(s - m) / l rounded to bf16: the normalisation is in p, O needs none
+      float shift[2], p_norm[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        shift[r] = m[r] * kExpScale;
+        p_norm[r] = 1.f / l[r];
+      }
+
+      // ---- sweep 2: P = bf16(exp(s - m) / l) and O += P V ----
+      uint32_t pa[32];  // P of the last tile, bf16 pairs in the A-operand layout
+      const auto probabilities = [&](int k0) {
+        add_bias(sc, qd0, qd1, tile_kind(q0w, k0, p.left, right), k0, row0, c2, p.left, right, valid,
+                 k0 + kKeys > valid);
+#pragma unroll
+        for (int i = 0; i < 64; i += 2) {
+          const int r = (i >> 1) & 1;
+          pa[i / 2] = tc::pack_bf16(tc::ex2(fmaf(sc[i], kExpScale, -shift[r])) * p_norm[r],
+                                    tc::ex2(fmaf(sc[i + 1], kExpScale, -shift[r])) * p_norm[r]);
+        }
+      };
+      {
+        const int s = gk % kRing;
+        tc::mbar_wait(full_k + 8 * s, (gk / kRing) & 1);
+        tc::wgmma_fence();
+        tc::issue_scores<64, kItemRows>(sc, q_wg, k_s + s * kTileBytes);
+        tc::wgmma_wait();
+        tc::fence_regs(sc);
+        if (lane == 0) tc::mbar_arrive(empty_k + 8 * s);
+        ++gk;
+        probabilities(0);
+      }
+#pragma unroll 1
+      for (int j = 1; j < n; ++j, ++gk, ++gv) {
+        const int s = gk % kRing, sv = gv % kRing;
+        tc::mbar_wait(full_k + 8 * s, (gk / kRing) & 1);
+        tc::mbar_wait(full_v + 8 * sv, (gv / kRing) & 1);
+        tc::wgmma_fence();
+        tc::issue_scores<64, kItemRows>(sc, q_wg, k_s + s * kTileBytes);
+        tc::issue_pv<64>(o, pa, v_s + sv * kTileBytes);
+        tc::wgmma_wait();
+        tc::fence_regs(sc);
+        tc::fence_regs(o);
+        if (lane == 0) {
+          tc::mbar_arrive(empty_k + 8 * s);
+          tc::mbar_arrive(empty_v + 8 * sv);
+        }
+        probabilities(j * kKeys);
+      }
+      // the last tile's P V
+      const int sv = gv % kRing;
+      tc::mbar_wait(full_v + 8 * sv, (gv / kRing) & 1);
+      tc::wgmma_fence();
+      tc::issue_pv<64>(o, pa, v_s + sv * kTileBytes);
+      tc::wgmma_wait();
+      tc::fence_regs(o);
+      if (lane == 0) tc::mbar_arrive(empty_v + 8 * sv);
+      ++gv;
+    }
+
+    // ---- out = bf16(O), a row with no key 0: into this warpgroup's rows of
+    // the q slot as TMA's 128-byte swizzle lays them out, then one thread
+    // stores them with TMA, which leaves out the rows past T ----
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = lrow + 8 * r;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const uint32_t at = q_wg + row * kPanelBytes + (((c % 8) ^ (row % 8)) * 16) + 2 * c2;
+        const uint32_t pair = tc::pack_bf16(o[4 * c + 2 * r], o[4 * c + 2 * r + 1]);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(pair) : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    tc::bar_sync(1 + wg, 128);
+    if (wtid == 0) {
+      tc::tma_store(&p.o, q_wg, 0, q0w, it.h, it.b);
+      tc::bulk_commit();
+      pending = slot;
+    } else if (lane == 0) {
+      tc::mbar_arrive(q_done);
+    }
+  }
+  if (wtid == 0) tc::bulk_wait<false>();  // the last stores, before the block's shared memory goes
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, const long long* st, const float* table,
+           const int* key_lengths, int B, int H, int T, int n_pos, int left, cudaStream_t stream) {
+  if (B < 1 || H < 1 || T < 1 || n_pos < 1 || n_pos > kMaxPos || left < 0 || left >= n_pos)
+    return (int)cudaErrorInvalidValue;
+  RelKeyParams p;
+  int err = tc::make_map(&p.q, q, st, 64, T, H, B, kItemRows);
+  if (err == 0) err = tc::make_map(&p.k, k, st + 3, 64, T, H, B, kKeys);
+  if (err == 0) err = tc::make_map(&p.v, v, st + 6, 64, T, H, B, kKeys);
+  if (err == 0) err = tc::make_map(&p.o, o, st + 9, 64, T, H, B, 64);
+  if (err != 0) return err;
+  p.table = table;
+  p.lengths = key_lengths;
+  p.BH = B * H;
+  p.H = H;
+  p.T = T;
+  p.n_pos = n_pos;
+  p.left = left;
+  cudaError_t e = cudaFuncSetAttribute(flash_relkey_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (e != cudaSuccess) return (int)e;
+  // persistent: one block an SM, or one an item where there are fewer
+  int device = 0, sms = 0;
+  e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  const long long items = (long long)(T + kItemRows - 1) / kItemRows * B * H;
+  const int blocks = items < sms ? (int)items : sms;
+  flash_relkey_kernel<64><<<blocks, kThreads, kBytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace rk
+
 template <bool kMasked, bool kBf16Scores = false>
 int launch_typed(const Params& p, int B, int dtype, cudaStream_t s) {
   if (p.D < 1 || p.D > 128) return (int)cudaErrorInvalidValue;
@@ -1219,6 +1666,20 @@ int flash_forward_masked(const void* q, const void* k, const void* v, void* o,
   p.rep = H / KVH;
   p.causal = causal != 0;
   return launch_typed<true>(p, B, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// o = softmax((q k^T + q E[clamp(r - l, -left, n_pos - 1 - left) + left]) /
+// sqrt(64) over the keys r < lengths[b]) v for bf16 q, k, v and o of (B,
+// H, T, 64) (strides as for flash_forward) and the fp32 distance table E
+// of (n_pos, 64), row-major in device memory: the scores, the bias and the
+// softmax in fp32, the normalised probabilities rounded to bf16 before P.V.
+// lengths: (B,) int32 in device memory, or null for every key; a row of
+// length 0 is zero.  Returns cudaGetLastError() after the launch.
+int flash_relkey_forward(const void* q, const void* k, const void* v, void* o, const long long* strides,
+                         const float* table, const int* lengths, int B, int H, int T, int D, int n_pos, int left,
+                         void* stream) {
+  if (D != 64) return (int)cudaErrorInvalidValue;
+  return rk::launch(q, k, v, o, strides, table, lengths, B, H, T, n_pos, left, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -159,7 +159,9 @@ class TinyAudioBackbone(TorchAudioBackbone):
     """Small random-weight conformer for offline/synthetic runs (the JAX
     package's tiny config, fp32): random weights from ``seed``, or the
     weights of ``state_dict`` (e.g. a JAX tiny backbone's, converted by
-    ``models.convert.wav2vec_bert_params_to_torch``)."""
+    ``models.convert.wav2vec_bert_params_to_torch``).  It runs on the CPU:
+    on the card its attention (fp32, head dim 16) raises, since the
+    relative-key kernel takes bf16 at head dim 64."""
 
     def __init__(
         self,

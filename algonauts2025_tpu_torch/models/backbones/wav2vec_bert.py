@@ -13,14 +13,21 @@ activations, LayerNorm statistics and affine in fp32 with the output cast
 back, attention scores and the relative bias in fp32, the softmax cast to
 ``cfg.dtype`` before P.V.  The JAX package places the relative bias with
 a banded one-hot matmul (``_rel_onehot``, a TPU layout workaround that
-pins a (T, 73, T) tensor); here it is a gather of the same values.  The
+pins a (T, 73, T) tensor) and leaves the attention to XLA.  Here the
+attention is ``ops.flash_attention.relkey_attention``: on the card one
+launch a layer of the port's relative-key kernel (the same function, the
+probabilities normalised in fp32 and then rounded to bf16), which takes a
+bf16 model at head dim 64 (w2v-BERT 2.0's) and raises for any other; on
+the CPU the plain version (``relkey_attention_plain``), whose bias is a
+gather of the same values as the one-hot matmul, for every configuration.
+Attention masks are right-padded: a row whose mask is not gives NaN
+states from entry 1 on, on every device, as the Llama port does.  The
 scanned ``(L, ...)`` params of the JAX package are one module per layer
-(``models.convert.wav2vec_bert_params_to_torch`` unstacks them).  The
-audio path has no Pallas kernel, so nothing here launches one of the
-port's kernels.  Under a profiler a forward's stages are spans
-(``utils.profiling.span``): ``conformer.embed``, then per layer
-``conformer.ffn1``, ``conformer.attention``, ``conformer.conv`` and
-``conformer.ffn2`` (the last with the final LayerNorm).
+(``models.convert.wav2vec_bert_params_to_torch`` unstacks them).  Under a
+profiler a forward's stages are spans (``utils.profiling.span``):
+``conformer.embed``, then per layer ``conformer.ffn1``,
+``conformer.attention``, ``conformer.conv`` and ``conformer.ffn2`` (the
+last with the final LayerNorm).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.flash_attention import relative_positions, relkey_attention  # noqa: F401 (re-exported)
 from ...utils.profiling import span
 
 __all__ = ["Wav2VecBertConfig", "Wav2VecBertBackbone", "params_from_hf", "W2V_BERT_2_0"]
@@ -107,12 +115,6 @@ class ConvModule(nn.Module):
         return self.pointwise_conv2(h)
 
 
-def relative_positions(t: int, left: int, right: int, device=None) -> torch.Tensor:
-    """(T, T) int64 index of the distance table: clamp(r - l, -left, right) + left."""
-    pos = torch.arange(t, device=device)
-    return torch.clamp(pos[None, :] - pos[:, None], -left, right) + left
-
-
 class RelKeyAttention(nn.Module):
     """Self-attention with a clamped relative-distance key bias
     (HF modeling_wav2vec2_bert.py:308-320)."""
@@ -126,7 +128,9 @@ class RelKeyAttention(nn.Module):
         n_pos = cfg.left_max_pos + cfg.right_max_pos + 1
         self.distance_embedding = nn.Parameter(torch.zeros((n_pos, h // cfg.num_heads), device=device))
 
-    def forward(self, x: torch.Tensor, attn_bias: torch.Tensor | None, rel_index: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor | None) -> torch.Tensor:
+        """``x`` (B, T, D); ``lengths`` (B,) the valid keys of each row, or
+        None for every key."""
         cfg = self.cfg
         b, t, _ = x.shape
         h, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
@@ -135,18 +139,8 @@ class RelKeyAttention(nn.Module):
             return linear(x).reshape(b, t, h, hd).transpose(1, 2)
 
         q, k, v = heads(self.linear_q), heads(self.linear_k), heads(self.linear_v)
-        qf = q.float()
-        scores = torch.matmul(qf, k.float().transpose(-1, -2)) / hd**0.5
-        # project q onto the small distance table, then place the clamped
-        # diagonals: rel[b, h, l, r] = qd[b, h, l, rel_index[l, r]]
-        qd = torch.matmul(qf, self.distance_embedding.float().T)  # (B, H, T, n_pos)
-        rel = torch.take_along_dim(qd, rel_index[None, None], dim=-1)
-        scores = scores + rel / hd**0.5
-        if attn_bias is not None:
-            scores = scores + attn_bias
-        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, t, cfg.hidden_size)
-        return self.linear_out(out)
+        out = relkey_attention(q, k, v, self.distance_embedding, lengths, cfg.left_max_pos, cfg.right_max_pos)
+        return self.linear_out(out.transpose(1, 2).reshape(b, t, cfg.hidden_size))
 
 
 class ConformerLayer(nn.Module):
@@ -163,12 +157,12 @@ class ConformerLayer(nn.Module):
         self.ffn2 = FeedForward(cfg, device=device)
         self.final_layer_norm = _norm(cfg, h, device)
 
-    def forward(self, x, attn_bias, pad_mask, rel_index):
+    def forward(self, x, lengths, pad_mask):
         dtype = self.cfg.dtype
         with span("conformer.ffn1"):
             x = x + 0.5 * self.ffn1(_layer_norm(x, self.ffn1_layer_norm, dtype))
         with span("conformer.attention"):
-            x = x + self.self_attn(_layer_norm(x, self.self_attn_layer_norm, dtype), attn_bias, rel_index)
+            x = x + self.self_attn(_layer_norm(x, self.self_attn_layer_norm, dtype), lengths)
         with span("conformer.conv"):
             x = x + self.conv_module(x, pad_mask)
         with span("conformer.ffn2"):
@@ -208,23 +202,30 @@ class Wav2VecBertBackbone(nn.Module):
 
     def forward(self, input_features: torch.Tensor, attention_mask: torch.Tensor | None = None) -> torch.Tensor:
         """``input_features`` (B, T, input_dim); ``attention_mask`` (B, T),
-        nonzero on valid frames: padded frames are zeroed after the
-        projection and in the conv module, and padded keys get a -1e30
-        bias (padded query rows are computed, not zeroed)."""
+        nonzero on valid frames, right-padded (each row's valid frames
+        first, as the feature extractor pads): padded frames are zeroed after
+        the projection and in the conv module, and the keys past each row's
+        valid count get a -1e30 bias (padded query rows are computed, not
+        zeroed).  The counts are one (B,) int32 tensor a forward, made on
+        the mask's device.  A row whose mask is not right-padded gives NaN
+        states from entry 1 on (the counts could not mask its keys), with
+        no host sync."""
         cfg = self.cfg
         with span("conformer.embed"):
             x = self.fp_projection(_layer_norm(input_features, self.fp_layer_norm, cfg.dtype))
             b, t, _ = x.shape
-            pad_mask = attn_bias = None
+            pad_mask = lengths = None
             if attention_mask is not None:
                 pad_mask = attention_mask.bool()
                 x = torch.where(pad_mask[..., None], x, 0.0)
-                attn_bias = torch.where(pad_mask[:, None, None, :], 0.0, -1e30)
-            rel_index = relative_positions(t, cfg.left_max_pos, cfg.right_max_pos, device=x.device)
+                lengths = pad_mask.sum(dim=-1, dtype=torch.int32)
+                right_padded = (pad_mask == (torch.arange(t, device=x.device) < lengths[:, None])).all(dim=-1)
         out = torch.empty((cfg.num_layers + 1, b, t, cfg.hidden_size), device=x.device)
         out[0] = x
+        if attention_mask is not None:
+            x = torch.where(right_padded[:, None, None], x, torch.nan)
         for i, layer in enumerate(self.layers):
-            x = layer(x, attn_bias, pad_mask, rel_index)
+            x = layer(x, lengths, pad_mask)
             out[i + 1] = x
         return out
 

@@ -29,6 +29,14 @@ Off the dispatch, for the attention bench (``scripts/bench_attn.py``):
   each head runs on its own (``flash_forward_packed``,
   ``packed_attention_plain``).
 
+The w2v-BERT conformer's self-attention with its clamped relative-key bias
+(``relkey_attention``; HF's ``relative_key`` position embeddings) has no TPU
+kernel: the JAX package leaves it to XLA.  Its kernel ``flash_relkey_forward``
+computes ``RelKeyAttention``'s function at head dim 64 in bf16 with fp32
+scores, bias and softmax and the normalised probabilities rounded to bf16
+before P.V (``relkey_attention_plain``), sweeping the keys twice: once for
+each row's maximum and sum, once for P.V.
+
 Every kernel takes any T (the ragged edge is masked in the kernel), so the
 JAX package's q/kv block sizes have no counterpart here.  bf16 runs on the
 tensor cores and reads q, k and v through TMA, which needs 16-byte
@@ -45,14 +53,16 @@ import torch
 
 from . import _cuda
 
-__all__ = ["flash_attention", "fast_flash_attention", "flash_attention_packed",
+__all__ = ["flash_attention", "fast_flash_attention", "flash_attention_packed", "relkey_attention",
            "bounded_attention_plain", "fast_attention_plain", "flash_attention_plain",
-           "packed_attention_plain", "check_tma_layout", "tc_block", "tc_launch_regs",
-           "tc_instantiation", "TC_INSTANTIATIONS", "launch_counts"]
+           "packed_attention_plain", "relkey_attention_plain", "relative_positions", "check_tma_layout",
+           "tc_block", "tc_launch_regs", "tc_instantiation", "TC_INSTANTIATIONS", "check_relkey_inputs",
+           "relkey_block", "relkey_tile_kind", "relkey_instantiation", "RELKEY_INSTANTIATIONS", "RELKEY_HEAD_DIM",
+           "launch_counts"]
 
 #: kernel launches since the last reset, counted where the kernel launches
 launch_counts: dict[str, int] = {"flash_attention": 0, "flash_masked": 0, "flash_fast": 0,
-                                 "flash_packed": 0}
+                                 "flash_packed": 0, "flash_relkey": 0}
 
 _FORWARD = ("flash_attention", "flash_forward", (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -73,6 +83,12 @@ _FAST = ("flash_attention", "flash_forward_fast", (
     ctypes.c_float, ctypes.c_void_p,
 ))
 _PACKED = ("flash_attention", "flash_forward_packed", _FORWARD[2])
+_RELKEY = ("flash_attention", "flash_relkey_forward", (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
+))
 _MAX_HEAD_DIM = ("flash_attention", "flash_max_head_dim", ())
 #: the score dtypes of ``fast_flash_attention`` (``_fast_kernel``'s score_dtype)
 _SCORE_DTYPES = (torch.float32, torch.bfloat16)
@@ -381,3 +397,159 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     b, h, t, d = q.shape
     return _launch(_PACKED, "flash_packed", q, k, v, False, b, h, t, d, _cuda.DTYPE_CODES[q.dtype],
                    d**-0.5)
+
+
+def relative_positions(t: int, left: int, right: int, device=None) -> torch.Tensor:
+    """(T, T) int64 index of the distance table: clamp(r - l, -left, right) + left."""
+    pos = torch.arange(t, device=device)
+    return torch.clamp(pos[None, :] - pos[:, None], -left, right) + left
+
+
+def relkey_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    table: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    left: int = 64,
+    right: int = 8,
+) -> torch.Tensor:
+    """(B, H, T, hd) self-attention with a clamped relative-distance key bias
+    (HF modeling_wav2vec2_bert.py:308-320), ``RelKeyAttention``'s arithmetic:
+    fp32 scores q k^T / sqrt(hd) plus the bias q . table[clamp(r - l, -left,
+    right) + left] / sqrt(hd), where keys r >= lengths[b] get -1e30 more,
+    the softmax in fp32 rounded to v's dtype, then P.V in v's dtype."""
+    b, t, hd = q.shape[0], q.shape[2], q.shape[-1]
+    qf = q.float()
+    scores = torch.matmul(qf, k.float().transpose(-1, -2)) / hd**0.5
+    # project q onto the small distance table, then place the clamped
+    # diagonals: rel[b, h, l, r] = qd[b, h, l, index[l, r]]
+    qd = torch.matmul(qf, table.float().T)  # (B, H, T, n_pos)
+    rel = torch.take_along_dim(qd, relative_positions(t, left, right, device=q.device)[None, None], dim=-1)
+    scores = scores + rel / hd**0.5
+    if lengths is not None:
+        keep = torch.arange(t, device=q.device) < lengths.to(q.device).reshape(b, 1, 1, 1)
+        scores = scores + torch.where(keep, 0.0, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.matmul(probs, v)
+
+
+#: the relative-key kernel's block (csrc/flash_attention.cu, namespace rk):
+#: consumer warpgroups of 64 query rows, K/V ring stages, q slots, the most
+#: rows of the distance table, and the registers a consumer and a producer
+#: thread keep after setmaxnreg
+_RK_GROUPS, _RK_RING, _RK_SLOTS, _RK_MAX_POS = 2, 4, 2, 80
+_RK_CONSUMER_REGS, _RK_PRODUCER_REGS = 240, 24
+#: the head dim the relative-key kernel runs at
+RELKEY_HEAD_DIM = 64
+
+
+def relkey_block() -> dict[str, int]:
+    """The block ``flash_relkey_kernel`` launches: a pure function mirroring
+    the constants of ``namespace rk``.  ``smem_bytes`` counts the q slots,
+    the K and V ring, the fp32 distance table (``max_pos`` rows of 64), each
+    consumer warpgroup's q.E rows (``qd_stride`` floats a row), the
+    mbarriers (full / empty for each q slot, and for K and for V a stage)
+    and the slack that aligns the base to 1024 bytes."""
+    rows, threads = 64 * _RK_GROUPS, 128 * _RK_GROUPS + 128
+    tile = _TC_KEYS * 128
+    qd_stride = _RK_MAX_POS + 1
+    return {
+        "warpgroups": _RK_GROUPS, "stages": _RK_RING, "q_slots": _RK_SLOTS, "rows": rows, "threads": threads,
+        "max_pos": _RK_MAX_POS, "qd_stride": qd_stride,
+        "smem_bytes": _RK_SLOTS * rows * 128 + 2 * _RK_RING * tile + _RK_MAX_POS * 64 * 4
+        + _RK_GROUPS * 64 * qd_stride * 4 + 8 * (2 * _RK_SLOTS + 4 * _RK_RING) + 1024,
+        "consumer_regs": _RK_CONSUMER_REGS, "producer_regs": _RK_PRODUCER_REGS,
+        "launch_regs": tc_launch_regs(threads),
+    }
+
+
+def relkey_tile_kind(q0: int, k0: int, left: int, right: int) -> str:
+    """How ``flash_relkey_kernel`` biases the tile of query rows q0 .. q0 +
+    63 and keys k0 .. k0 + 127 (``rk::tile_kind``): "left" when every
+    distance r - l is at most -left (each row adds its first q.E value),
+    "right" when every one is at least ``right`` (its last), else "band"
+    (each score gathers its own)."""
+    if k0 + _TC_KEYS - 1 - q0 <= -left:
+        return "left"
+    if k0 - (q0 + 63) >= right:
+        return "right"
+    return "band"
+
+
+#: every instantiation of ``flash_relkey_kernel``: (head dim,)
+RELKEY_INSTANTIATIONS = [(RELKEY_HEAD_DIM,)]
+
+
+def relkey_instantiation(name: str) -> tuple[int, ...]:
+    """(head dim,) of a mangled ``flash_relkey_kernel`` name: its template
+    argument, as ``RELKEY_INSTANTIATIONS`` lists it."""
+    return tuple(int(x) for x in re.findall(r"L[ib](\d+)E", name.split("flash_relkey_kernel", 1)[1])[:1])
+
+
+def check_relkey_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, table: torch.Tensor,
+                 lengths: torch.Tensor | None, left: int, right: int) -> None:
+    """Raise ValueError unless ``flash_relkey_kernel`` takes the call: bf16 q,
+    k, v of one (B, H, T, 64) shape with a unit stride on the head dim, in
+    the layout TMA reads; a (left + right + 1, 64) table of at most
+    ``relkey_block()["max_pos"]`` rows; (B,) lengths.  A pure function of
+    shapes, dtypes and layouts: it never copies and never launches."""
+    b, h, t, d = q.shape if q.dim() == 4 else (0, 0, 0, 0)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype != torch.bfloat16 or x.shape != q.shape or x.dim() != 4 or x.stride(-1) != 1:
+            raise ValueError(f"relative-key attention kernel wants bf16 q, k, v of one (B, H, T, 64) shape with a "
+                             f"unit stride on the head dim; {name} is {x.dtype} {tuple(x.shape)} strides {x.stride()}")
+        check_tma_layout(name, x.shape, x.stride(), x.data_ptr(), x.element_size())
+    if d != RELKEY_HEAD_DIM or t < 1 or b * h < 1:
+        raise ValueError(f"relative-key attention kernel runs at head dim {RELKEY_HEAD_DIM} over a non-empty T, "
+                         f"got {tuple(q.shape)}")
+    n_pos = left + right + 1
+    if left < 0 or right < 0 or n_pos > _RK_MAX_POS or tuple(table.shape) != (n_pos, d):
+        raise ValueError(f"relative-key attention kernel: table of shape {tuple(table.shape)} for left {left}, "
+                         f"right {right}; it takes ({n_pos}, {d}) with left, right >= 0 and at most "
+                         f"{_RK_MAX_POS} rows")
+    if lengths is not None and tuple(lengths.shape) != (b,):
+        raise ValueError(f"relative-key attention kernel: lengths of shape {tuple(lengths.shape)}, want ({b},)")
+
+
+def _relkey_cuda(q, k, v, table, lengths, left, right) -> torch.Tensor:
+    """``flash_relkey_forward`` on the current stream, counted."""
+    _cuda.check_cuda("relative-key attention", q=q, k=k, v=v, table=table,
+                     **({} if lengths is None else {"lengths": lengths}))
+    check_relkey_inputs(q, k, v, table, lengths, left, right)
+    b, h, t, d = q.shape
+    table = table.to(torch.float32).contiguous()
+    lens = None if lengths is None else lengths.to(dtype=torch.int32).contiguous()
+    out, strides = _output_and_strides(q, k, v)
+    with torch.cuda.device(q.device):
+        err = _cuda.function(*_RELKEY)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, table.data_ptr(),
+            None if lens is None else lens.data_ptr(), b, h, t, d, left + right + 1, left,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_relkey kernel launch failed: CUDA error {err} (shape {tuple(q.shape)})")
+    launch_counts["flash_relkey"] += 1
+    return out
+
+
+def relkey_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    table: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    left: int = 64,
+    right: int = 8,
+) -> torch.Tensor:
+    """(B, H, T, hd) self-attention with the clamped relative-distance key
+    bias of ``table`` (left + right + 1, hd) over the keys r < lengths[b]
+    (every key without ``lengths``).  CPU tensors run
+    ``relkey_attention_plain``; CUDA tensors launch ``flash_relkey_forward``
+    (bf16 at hd = 64, in the TMA layout, ``check_relkey_inputs``) or
+    raise.  The output is (B, T, H, hd) memory seen as (B, H, T, hd), so
+    merging the heads is free.  A batch row of length 0 gives zeros on the card (the
+    plain version's softmax over no key spreads evenly instead)."""
+    if q.device.type == "cpu":
+        return relkey_attention_plain(q, k, v, table, lengths, left, right)
+    return _relkey_cuda(q, k, v, table, lengths, left, right)

@@ -6,9 +6,9 @@ build: what ``chip_smoke.py`` and the lever scripts (``flash_levers.py``,
   sources with some lines replaced, written under ``_build/<dir>`` and
   built with one nvcc each, all started together;
 - ``stand_in``: ``_cuda.function`` over such builds' libraries;
-- ``ptxas_kernels``, ``ptxas_remarks``, ``sass_functions``, ``sass_ops``:
-  what nvcc's ``-Xptxas -v`` report and ``cuobjdump -sass`` say of each
-  kernel;
+- ``ptxas_kernels``, ``ptxas_remarks``, ``sass_functions``, ``sass_ops``,
+  ``sass_digest``: what nvcc's ``-Xptxas -v`` report and ``cuobjdump
+  -sass`` say of each kernel;
 - ``time_ms``, ``device_kernels``, ``parts_ms``: a call's device time from
   CUDA events, and its kernels' from ``torch.profiler``;
 - ``w8a8_case``, ``mlp_case``: seeded arguments of kernel rows 6 and 7;
@@ -23,6 +23,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import hashlib
 import json
 import re
 import statistics
@@ -36,8 +37,8 @@ import torch
 from ..ops import _cuda, quant
 
 __all__ = ["Patch", "Build", "write_patched", "start_builds", "finish_builds", "stand_in", "ptxas_kernels",
-           "ptxas_remarks", "sass_functions", "sass_ops", "time_ms", "device_kernels", "parts_ms", "rel_l2",
-           "card_line", "VITG_M", "VITG_D", "VITG_F", "w8a8_case", "mlp_case", "kmajor", "Row", "LeverFamily",
+           "ptxas_remarks", "sass_functions", "sass_ops", "sass_digest", "time_ms", "device_kernels", "parts_ms",
+           "rel_l2", "card_line", "VITG_M", "VITG_D", "VITG_F", "w8a8_case", "mlp_case", "kmajor", "Row", "LeverFamily",
            "write_builds", "gate", "lever_study"]
 
 #: (file, the text it replaces, which must be in the file exactly once, the
@@ -123,6 +124,14 @@ def sass_functions(library: Path) -> dict[str, str]:
 def sass_ops(body: str, ops: tp.Iterable[str]) -> dict[str, int]:
     """How many instructions of each class of ``ops`` a SASS body holds."""
     return {op: len(re.findall(rf"\b{re.escape(op)}\b", body)) for op in ops}
+
+
+def sass_digest(body: str) -> str:
+    """sha256 of a SASS body's instruction lines (each address, instruction
+    and encoding word, its runs of blanks made one space): two bodies share
+    it exactly when they hold the same instructions in the same order."""
+    lines = [" ".join(line.split()) for line in body.splitlines() if line.strip().startswith("/*")]
+    return hashlib.sha256("\n".join(lines).encode()).hexdigest()
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:

@@ -37,14 +37,23 @@ Phases (any failure exits non-zero):
    ``_build/mutants`` (one ignores the key lengths, one ignores
    ``causal``), must fail the same check.  The bench-only fast
    kernel with bf16 scores must differ from itself with fp32 scores, and
-   the packed wrapper must refuse d != 64 and an odd head count.
+   the packed wrapper must refuse d != 64 and an odd head count.  The
+   relative-key kernel (w2v-BERT's attention) runs at the audio cell's
+   shapes within ``RELKEY_REL`` of its plain version, timed at
+   T = 3000 beside its bound and the plain version; its SASS must hold
+   HGMMA and USETMAXREG with no spills at its block's launch registers,
+   and two mutants (the probabilities rounded before they are normalised,
+   the bias one distance off) must fail its check.  The six
+   ``flash_tc_kernel`` instantiations must have the SASS whose digests
+   ``tests/fixtures/kernels/flash_tc_kernel.sass.sha256`` records (an
+   H100 build, recorded anew with every change to that kernel).
 3. A small FmriEncoder trained on the card and on the CPU from the same
    weights must agree step by step; a small static-int8 V-JEPA2 backbone
    (1024 tokens, so every video kernel dispatches), a small fp32 Llama
    (512 tokens, right-padded, so the masked flash kernel dispatches) and a
-   small fp32 w2v-BERT (48 kHz chunks through the bucketed, pad-masked
-   audio path) must give the same features on the card as on the CPU from
-   the same weights.  Host batches of the flagship's shapes go through
+   small bf16 w2v-BERT at head dim 64 (48 kHz chunks through the bucketed,
+   pad-masked audio path, the relative-key kernel on the card) must give the
+   same features on the card as on the CPU from the same weights.  Host batches of the flagship's shapes go through
    ``data.prefetch_to_device`` (the Experiment's feed: a producer thread,
    pinned ``non_blocking`` copies) and must arrive on the card unchanged;
    ``to_device`` must leave them where they are, and an early stop must end
@@ -85,8 +94,10 @@ Phases (any failure exits non-zero):
    seeded 48 kHz stereo speech-like signal cut into five chunks of 30-60
    s, each through ``mono_zscore`` and ``encode_sound_stream`` (resample,
    5 s buckets, masked mel, conformer, 2 Hz frames), then
-   ``aggregate_layers`` down to the trunk's audio input.  One chunk is
-   encoded again at its exact length, and the two must agree.
+   ``aggregate_layers`` down to the trunk's audio input; the attention of
+   each layer launches the relative-key kernel once, and nothing else
+   launches.  One chunk is encoded again at its exact length, and the two
+   must agree.
 
 9. The port's ``Experiment(**cfg).run()`` on the card, ``cfg`` being
    ``grids/defaults.py``'s with ``accelerator="cuda"``:
@@ -257,15 +268,17 @@ def card() -> str:
 
 
 def build_kernels() -> dict[str, Path]:
-    """Build every source of csrc and, beside them, the MUTANTS of the flash
-    source, patched copies under _build/mutants (all nvcc processes at once);
-    returns the mutants' libraries."""
+    """Build every source of csrc and, beside them, the MUTANTS and
+    RELKEY_MUTANTS of the flash source, patched copies under _build/mutants
+    (all nvcc processes at once); returns the mutants' libraries."""
     t0 = time.time()
     source, jobs = {"flash_attention.cu": _cuda.CSRC / "flash_attention.cu"}, {}
-    for name, (line, patched) in MUTANTS.items():
+    patches = {**{name: [("flash_attention.cu", line, patched)] for name, (line, patched) in MUTANTS.items()},
+               **RELKEY_MUTANTS}
+    for name, patch in patches.items():
         folder = _cuda.BUILD_DIR / "mutants" / name
-        if kernel_tools.write_patched(source, [("flash_attention.cu", line, patched)], folder):
-            raise SystemExit(f"mutant {name}: {line!r} is not one line of flash_attention.cu")
+        if bad := kernel_tools.write_patched(source, patch, folder):
+            raise SystemExit(f"mutant {name}: {[old for _, old, _ in bad]} not each once in flash_attention.cu")
         jobs[name] = (folder / "flash_attention.cu", folder / "libflash_attention.so")
     started = kernel_tools.start_builds(jobs)
     try:
@@ -329,13 +342,44 @@ def check_sass(flash_library: Path, int8_libraries: dict[str, Path]) -> None:
     an epilogue of ``quant.INT8_EPILOGUES``, run IGMMA (the SASS of
     ``wgmma.mma_async ... .s32.s8.s8``) on the schedule ``quant.INT8_GEMMS``
     names for the GEMM each serves, with ``quant.gemm_block``'s launch
-    registers."""
+    registers; and the relative-key kernel ``flash_relkey_kernel`` runs
+    HGMMA with ``flash.relkey_block``'s launch registers."""
     check_instantiations(flash_library, ptxas_report("flash_attention"), "flash_tc_kernel", flash.tc_instantiation,
                          "HGMMA", {key: flash.tc_block(key[0])["launch_regs"] for key in flash.TC_INSTANTIATIONS})
+    check_instantiations(flash_library, ptxas_report("flash_attention"), "flash_relkey_kernel",
+                         flash.relkey_instantiation, "HGMMA",
+                         {key: flash.relkey_block()["launch_regs"] for key in flash.RELKEY_INSTANTIATIONS})
     for name, library in int8_libraries.items():
         check_instantiations(library, ptxas_report(name), "gemm_kernel", quant.gemm_instantiation, "IGMMA",
                              {(epilogue, quant.INT8_GEMMS[gemm]): quant.gemm_block(gemm)["launch_regs"]
                               for epilogue, gemm in quant.INT8_EPILOGUES[name].items()})
+
+
+#: "<sha256> <mangled name>" a line: ``kernel_tools.sass_digest`` of each
+#: ``flash_tc_kernel`` instantiation's SASS in an H100 build (sm_90a), after
+#: the comment lines that name the toolkit
+TC_SASS_DIGESTS = Path(__file__).resolve().parent / "tests" / "fixtures" / "kernels" / "flash_tc_kernel.sass.sha256"
+
+
+def tc_sass_digests(text: str) -> dict[tuple, str]:
+    """TC_SASS_DIGESTS' lines, by instantiation."""
+    pairs = (line.split() for line in text.splitlines() if line.strip() and not line.startswith("#"))
+    return {flash.tc_instantiation(name): digest for digest, name in pairs}
+
+
+def check_tc_sass_unchanged(library: Path) -> None:
+    """The six bf16 instantiations of ``flash_tc_kernel`` in ``library``
+    have the SASS digests that TC_SASS_DIGESTS records, instruction for
+    instruction: a kernel added beside them leaves them as they were."""
+    want = tc_sass_digests(TC_SASS_DIGESTS.read_text())
+    got = {flash.tc_instantiation(name): kernel_tools.sass_digest(body)
+           for name, body in kernel_tools.sass_functions(library).items() if "flash_tc_kernel" in name}
+    differ = sorted(key for key in set(got) | set(want) if got.get(key) != want.get(key))
+    log(f"flash_tc_kernel SASS against {TC_SASS_DIGESTS.name}: {len(got)} instantiations, differing "
+        f"{differ or 'none'}")
+    if differ or sorted(got) != sorted(flash.TC_INSTANTIATIONS):
+        raise SystemExit(f"the flash_tc_kernel instantiations {differ} differ from the recorded SASS "
+                         f"({TC_SASS_DIGESTS}; a change to the kernel, or another toolkit, records it anew)")
 
 
 def qkv(shape, dtype, strided: bool, gen: torch.Generator, device="cuda"):
@@ -969,6 +1013,98 @@ def check_packed(peaks: dict[str, float]) -> dict:
                          main_err, kernel_ms, plain_ms, library_ms, bound_ms, bound_by)
 
 
+# the w2v-BERT 2.0 attention of a chunk at the 30, 60 and 90 s buckets'
+# frames (B, H, T, d), its distance band (left, right), and each case's
+# valid frames a few short of T; then two batch rows (one with padded keys)
+# and short T.  Each case runs with the distance table at the model's init
+# scale (std 0.02) and at std 1, where the bias is as large as q k^T
+RELKEY_SHAPES = [(1, 16, 1500, 64), (1, 16, 3000, 64), (1, 16, 4500, 64)]
+RELKEY_POS = (64, 8)
+RELKEY_CASES = [*((shape, (shape[2] - 3,)) for shape in RELKEY_SHAPES), ((2, 16, 1000, 64), (1000, 517)),
+                ((1, 16, 37, 64), None), ((1, 2, 300, 64), (250,))]
+RELKEY_TABLE_STDS = (0.02, 1.0)
+#: the limit of the kernel against its plain version (relative L2): both
+#: round the same normalised fp32 probabilities to bf16, so they differ only
+#: where a sum in another order crosses a bf16 rounding boundary; first
+#: readings on an H100: up to 1.9e-4 sound, 2.9e-3 and more for the mutants
+RELKEY_REL = 4.5e-4
+# patched copies of csrc/flash_attention.cu whose relative-key kernel must
+# fail check_relkey: the probabilities rounded before they are normalised
+# (the single-sweep numerics), and the bias read one distance off
+RELKEY_MUTANTS = {
+    "rounds_unnormalised_p": [("flash_attention.cu", "p_norm[r] = 1.f / l[r];", "p_norm[r] = 1.f;"),
+                              ("flash_attention.cu", "tc::mbar_arrive(empty_v + 8 * sv);\n      ++gv;",
+                               "tc::mbar_arrive(empty_v + 8 * sv);\n      ++gv;\n"
+                               "      for (int i = 0; i < 32; ++i) o[i] /= l[(i >> 1) & 1];")],
+    "band_off_by_one": [("flash_attention.cu", "const int j0 = k0 + c2 - row0 + left;",
+                         "const int j0 = k0 + c2 - row0 + left + 1;")],
+}
+
+
+def relkey_cases(label: str) -> tuple[bool, float]:
+    """Run RELKEY_CASES through ``relkey_attention`` against
+    ``relkey_attention_plain`` with each table scale: relative L2 within
+    ``RELKEY_REL``, finite, bf16 of q's shape.  Returns whether every case
+    passed and the 60 s case's max-abs error at the init scale."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    left, right = RELKEY_POS
+    all_ok, main_err = True, float("nan")
+    for (b, h, t, d), lengths in RELKEY_CASES:
+        q, k, v = (torch.randn((b, t, h, d), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+                   for _ in range(3))
+        lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        for std in RELKEY_TABLE_STDS:
+            table = std * torch.randn((left + right + 1, d), generator=gen, device="cuda")
+            out = flash.relkey_attention(q, k, v, table, lens, left, right)
+            torch.cuda.synchronize()
+            ref = flash.relkey_attention_plain(q, k, v, table, lens, left, right)
+            err = (out.float() - ref.float()).abs().max().item()
+            rel = rel_l2(out, ref)
+            ok = (out.dtype == torch.bfloat16 and out.shape == q.shape and torch.isfinite(out).all().item()
+                  and rel <= RELKEY_REL)
+            log(f"{label} {(b, h, t, d)} lengths {lengths} table std {std:g}: max_abs_err {err:.3e}, rel L2 "
+                f"{rel:.3e} (tol {RELKEY_REL:.1e}) {'ok' if ok else 'FAIL'}")
+            all_ok = all_ok and ok
+            if t == 3000 and std == RELKEY_TABLE_STDS[0]:
+                main_err = err
+    return all_ok, main_err
+
+
+def check_relkey(peaks: dict[str, float], mutants: dict[str, Path]) -> dict:
+    """The relative-key kernel against its plain version at the audio
+    cell's shapes; each of RELKEY_MUTANTS must fail the same cases; then
+    the kernel's and the plain version's time at T = 3000 beside the bound
+    (the function's work counted once: q k^T and P v, one ex2 a score)."""
+    ok, main_err = relkey_cases("flash_relkey")
+    if not ok:
+        raise SystemExit("the relative-key attention kernel disagrees with its plain version")
+    for name, library in mutants.items():
+        with mock.patch.object(_cuda, "function", kernel_tools.stand_in({"flash_attention": library})):
+            caught = not relkey_cases(f"mutant {name}")[0]
+        log(f"mutant {name}: {'fails the check, ok' if caught else 'PASSES the check'}")
+        if not caught:
+            raise SystemExit(f"check_relkey does not catch a kernel whose {name.replace('_', ' ')}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    b, h, t, d = RELKEY_SHAPES[1]
+    left, right = RELKEY_POS
+    q, k, v = (torch.randn((b, t, h, d), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    table = 0.02 * torch.randn((left + right + 1, d), generator=gen, device="cuda")
+    lens = torch.tensor([t - 3], dtype=torch.int32, device="cuda")
+    kernel_ms = time_ms(lambda: flash.relkey_attention(q, k, v, table, lens, left, right), iters=50)
+    plain_ms = time_ms(lambda: flash.relkey_attention_plain(q, k, v, table, lens, left, right), iters=3, warmup=1)
+    n = t - 3
+    flops = 4 * b * h * n * n * d
+    bound_ms, bound_by, terms = flash_bound(flops, 2 * 4 * b * h * n * d, b * h * n * n, peaks)
+    log(f"flash_relkey {RELKEY_SHAPES[1]} bf16, {n} valid keys: kernel {kernel_ms:.4f} ms "
+        f"({flops / kernel_ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / kernel_ms:.1f} % of the bound), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({terms})")
+    return kernel_record("flash_relkey", "flash_attention.cu", "none (the JAX package leaves the relative_key "
+                         "attention to XLA: _rel_onehot, einsum, softmax)", main_err, kernel_ms, plain_ms, None,
+                         bound_ms, bound_by)
+
+
 @torch.no_grad()
 def quantized_backbone(cfg: VJEPA2Config, gen: torch.Generator, device="cuda") -> VJEPA2Backbone:
     """A dynamic-scale int8 backbone from seeded float weights at a dense
@@ -1048,10 +1184,12 @@ def check_small_llama_against_cpu() -> None:
 
 # the audio path's input: 48 kHz stereo, as the production study's wav files
 AUDIO_SR = 48000
-# limit of the small audio check (times max|ref|): the fp32 conformer on
-# both sides; cuFFT and pocketfft differ in the last bits, which the mel
-# log amplifies (first reading on an H100: 1.2e-5)
-AUDIO_CPU_TOL = 1e-4
+# limit of the small audio check (relative L2 of the features): the bf16
+# conformer on both sides, the card's relative-key kernel against the CPU's
+# plain attention, cuBLAS against the CPU's bf16 GEMMs, cuFFT against
+# pocketfft in the mel (first reading on an H100: 1.945e-3; a pad mask
+# gone wrong reads of order 1)
+AUDIO_CPU_TOL = 5e-3
 
 
 def speech_like(n: int, sr: int, rng: np.random.Generator) -> np.ndarray:
@@ -1077,26 +1215,31 @@ def stereo_chunks(durations, sr: int, seed: int) -> list[tuple[np.ndarray, int, 
 
 @torch.no_grad()
 def check_small_audio_against_cpu() -> None:
-    """A small fp32 w2v-BERT (2 layers, 128 wide) on the card and on the CPU
-    from the same weights: two 48 kHz chunks through ``encode_sound_stream``
+    """A small bf16 w2v-BERT at head dim 64 (2 layers, 128 wide, the
+    relative-key kernel's configuration) on the card and on the CPU from
+    the same weights: two 48 kHz chunks through ``encode_sound_stream``
     (resampled, padded to the 5 s bucket, so the pad masks run) must give
-    the same features."""
-    cfg = Wav2VecBertConfig(hidden_size=128, num_layers=2, num_heads=4, intermediate_size=256,
-                            conv_kernel_size=7, dtype=torch.float32)
+    the same features, the card launching the kernel once a layer and
+    chunk."""
+    cfg = Wav2VecBertConfig(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
+                            conv_kernel_size=7, dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
     model = Wav2VecBertBackbone(cfg, device="cuda").init_random(gen)
     cpu_model = Wav2VecBertBackbone(cfg, device="cpu")
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     chunks = stereo_chunks((2.7, 4.1), AUDIO_SR, SEED + 16)
+    reset_counts()
     gpu = list(encode_sound_stream(TorchAudioBackbone(model), chunks))
+    launched = launch_counts()["flash_relkey"]
     cpu = list(encode_sound_stream(TorchAudioBackbone(cpu_model, device="cpu"), chunks))
-    err = max(np.abs(a - b).max() for a, b in zip(gpu, cpu))
-    scale = max(np.abs(b).max() for b in cpu)
-    log(f"small fp32 w2v-BERT (2 layers, 128 wide, 48 kHz chunks of 2.7 and 4.1 s in 5 s buckets), "
-        f"card vs CPU: max_abs_err {err:.3e} (tol {AUDIO_CPU_TOL:.0e} x max|ref| {scale:.3e}), "
+    same = [a.shape for a in gpu] == [b.shape for b in cpu]
+    rel = (np.sqrt(sum(np.square(a - b).sum() for a, b in zip(gpu, cpu)))
+           / np.sqrt(sum(np.square(b).sum() for b in cpu))) if same else float("inf")
+    log(f"small bf16 w2v-BERT (2 layers, 128 wide, head dim 64, 48 kHz chunks of 2.7 and 4.1 s in 5 s "
+        f"buckets), card vs CPU: rel L2 {rel:.3e} (tol {AUDIO_CPU_TOL:.0e}), flash_relkey launches {launched}, "
         f"shapes {[a.shape for a in gpu]}")
-    if [a.shape for a in gpu] != [b.shape for b in cpu] or not err <= AUDIO_CPU_TOL * scale:
-        raise SystemExit("the small w2v-BERT on the card disagrees with the CPU")
+    if not same or not rel <= AUDIO_CPU_TOL or launched != cfg.num_layers * len(chunks):
+        raise SystemExit("the small w2v-BERT on the card disagrees with the CPU, or did not run its kernel")
 
 
 def plain_features(encode, windows: np.ndarray) -> np.ndarray:
@@ -1456,8 +1599,9 @@ def audio_path(peaks: dict[str, float]) -> dict:
         raise SystemExit(f"audio features: shapes {[f.shape for f in feats]} (want {want}) or non-finite values")
     if trunk_input.shape != (2, cfg.hidden_size, sum(n_outs)) or not np.isfinite(trunk_input).all():
         raise SystemExit(f"aggregate_layers gave {trunk_input.shape} or non-finite values")
-    if sorted(b for b, _ in backbone.bucket_shapes) != list(AUDIO_BUCKETS) or any(launches.values()):
-        raise SystemExit("the audio path ran other buckets than reckoned, or launched a kernel")
+    expected = {**{key: 0 for key in launches}, "flash_relkey": cfg.num_layers * len(chunks)}
+    if sorted(b for b, _ in backbone.bucket_shapes) != list(AUDIO_BUCKETS) or launches != expected:
+        raise SystemExit(f"the audio path ran other buckets than reckoned, or launched {launches}, not {expected}")
 
     profile_run(f"audio {chunks[-1][2]} s chunk", lambda: list(encode_sound_stream(backbone, [chunks[-1]])),
                 chunk_s[-1] * 1e3)
@@ -1475,7 +1619,7 @@ def audio_path(peaks: dict[str, float]) -> dict:
     if not (rel.max() <= rel_tol and cos.min() >= cos_tol):
         raise SystemExit("the bucketed audio features disagree with the exact-length call")
     return {"ms_chunk": ms_chunk, "per_hour": per_hour, "peak_gb": peak_gb, "n_params": n_params,
-            "backbone": backbone}
+            "backbone": backbone, "launches": launches}
 
 
 FLAGSHIP_DIMS = {"text": (2, 3072), "audio": (2, 1024), "video": (2, 1408)}
@@ -1992,8 +2136,8 @@ SOUP_LEFT_GB = 1.0
 ENSEMBLE = dict(weigh_by_score=True, per_voxel_weights=True, temperature=0.3)
 ENSEMBLE_RTOL = 1e-6
 GRID_SEEDS = 5
-#: rows 2, 4, 6 and 7: the feature kernels, which a run over cached features never launches
-FEATURE_KERNELS = ("flash_masked", "flash_attention", "w8a8", "w8a8_rope", "int8_mlp")
+#: rows 2, 4, 6, 7 and 8: the feature kernels, which a run over cached features never launches
+FEATURE_KERNELS = ("flash_masked", "flash_attention", "w8a8", "w8a8_rope", "int8_mlp", "flash_relkey")
 PROFILE_FIRST, PROFILE_LAST = 6, 4
 #: the profiled run trains two epochs (the trace covers the first): does the
 #: second start slow as well?
@@ -2728,8 +2872,11 @@ def main() -> None:
     torch.manual_seed(SEED)
     mutants = build_kernels()
     check_sass(_cuda.build("flash_attention"), {name: _cuda.build(name) for name in quant.INT8_EPILOGUES})
-    kernels = [check_attention(peaks), check_flash(peaks), check_flash_masked(peaks, mutants),
-               check_fast(peaks), check_packed(peaks), check_w8a8(peaks), check_int8_mlp(peaks)]
+    check_tc_sass_unchanged(_cuda.build("flash_attention"))
+    kernels = [check_attention(peaks), check_flash(peaks),
+               check_flash_masked(peaks, {name: mutants[name] for name in MUTANTS}), check_fast(peaks),
+               check_packed(peaks), check_relkey(peaks, {name: mutants[name] for name in RELKEY_MUTANTS}),
+               check_w8a8(peaks), check_int8_mlp(peaks)]
     check_small_against_cpu()
     check_small_backbone_against_cpu()
     check_small_llama_against_cpu()
@@ -2790,7 +2937,8 @@ def main() -> None:
     launches = {**video["launches"], "attention": run["attention"],
                 "flash_masked": text["launches"]["flash_masked"],
                 "flash_fast": bench["launches"]["flash_fast"],
-                "flash_packed": bench["launches"]["flash_packed"]}
+                "flash_packed": bench["launches"]["flash_packed"],
+                "flash_relkey": audio["launches"]["flash_relkey"]}
     for record in kernels:
         record["launches"] = launches[record["name"]]
     if not all(record["launches"] for record in kernels):

@@ -87,6 +87,17 @@ def test_build_test_config_validates_on_the_cpu(smoke):
             assert got[key] == value, key
 
 
+def test_build_test_config_keeps_the_tiny_audio_backbone_on_the_cpu(tmp_path):
+    """On the card the smoke config places the trainer and the text and
+    video backbones there, and the tiny audio backbone (fp32, head dim 16,
+    which the card's relative-key attention kernel does not take) on the
+    CPU."""
+    cfg = port_test_run.build_test_config(tmp_root=str(tmp_path), device="cuda")
+    assert cfg["accelerator"] == "cuda"
+    assert {f: cfg["data"][f]["device"] for f in port_test_run.FEATURES} == {
+        "text_feature": "cuda", "audio_feature": "cpu", "video_feature": "cuda"}
+
+
 def test_build_test_config_does_not_mutate_defaults(smoke):
     """ConfDict holds the metrics list by reference to the defaults: the
     smoke config's synthetic study must not strip num_outputs from them."""
