@@ -13,6 +13,15 @@ the longest prefix (a chain); the rest run as padded batches.
 ``encode_word_stream`` is the device side and takes ``(text, context)``
 pairs; the pydantic ``LLAMA3p2`` feature runs it over ``Word`` events and
 caches each word's (L+1, D) stack under its ``"{text}_{context}"`` uid.
+The backbone is any decoder with the Llama backbone's contract
+(``TorchTextBackbone``): ``load_text_backbone`` builds a Llama or a
+DeepSeek-V2 (``model_type`` ``llama`` or ``deepseek_v2``).
+
+Under a profiler dispatch k's stages are spans (``utils.profiling.span``):
+``text.pad#<k>``, ``text.upload#<k>``, ``text.backbone#<k>`` (the
+backbone's own spans inside), ``text.pool#<k>`` and ``text.fetch#<k>``;
+``TorchTextBackbone.counts`` counts the forwards and their valid and padded
+tokens.
 """
 
 from __future__ import annotations
@@ -24,13 +33,16 @@ import typing as tp
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..core.events import Event, Word
 from ..core.timed import TimedArray
+from ..models.backbones import deepseek_v2
 from ..models.backbones.llama import LlamaBackbone, LlamaConfig, params_from_hf
 from ..parallel.mesh import LocalMesh, local_mesh
 from ..parallel.pipeline import pipelined_llama_states, stage_layers
 from ..runtime import default_device
+from ..utils.profiling import span
 from .base import LayeredFeatureBase
 
 logger = logging.getLogger(__name__)
@@ -132,9 +144,11 @@ def _pipelined_columns(
 class _HostCopy:
     """A device result on its way to the host: on a CUDA card the copy into
     pinned memory is queued (``non_blocking``) right behind the forward and
-    an event marks its end; ``np.asarray`` waits for that event only."""
+    an event marks its end; ``np.asarray`` waits for that event only, in the
+    span ``text.fetch<tag>``."""
 
-    def __init__(self, out: torch.Tensor):
+    def __init__(self, out: torch.Tensor, tag: str = ""):
+        self._tag = tag
         if out.is_cuda:
             self._host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             self._host.copy_(out, non_blocking=True)
@@ -144,30 +158,54 @@ class _HostCopy:
             self._host, self._event = out, None
 
     def __array__(self, dtype=None, copy=None):
-        if self._event is not None:
-            self._event.synchronize()
-        out = self._host.numpy()
+        with span(f"text.fetch{self._tag}"):
+            if self._event is not None:
+                self._event.synchronize()
+            out = self._host.numpy()
         return out if dtype is None else out.astype(dtype)
 
 
+def _upload(array: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A host array on ``device`` in ``dtype``: on a CUDA card through pinned
+    memory, queued without waiting for the card."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True).to(dtype)
+
+
 class TorchTextBackbone:
-    """A LlamaBackbone + tokenizer on ``device`` (the CUDA card unless it
+    """A decoder backbone + tokenizer on ``device`` (the CUDA card unless it
     says otherwise).
 
-    With ``pipeline_mesh`` (a ``LocalMesh`` with axis "stage") the layer
-    stack splits into contiguous stages, each stage's layers placed once on
-    its device, and every forward runs the GPipe schedule of
-    ``parallel.pipelined_llama_states``: the per-device weight memory is
-    L/S of the stack.  The embedding and final norm stay on ``device``."""
+    The backbone contract (``LlamaBackbone``, ``DeepseekV2Backbone``): an
+    ``nn.Module`` called with right-padded (B, T) token ids and mask on the
+    device returns the (L+1, B, T, D) float32 hidden-state stack, with NaN
+    rows from entry 1 on where a mask is not right-padded.
+
+    With ``pipeline_mesh`` (a ``LocalMesh`` with axis "stage"; Llama
+    backbones only) the layer stack splits into contiguous stages, each
+    stage's layers placed once on its device, and every forward runs the
+    GPipe schedule of ``parallel.pipelined_llama_states``: the per-device
+    weight memory is L/S of the stack.  The embedding and final norm stay
+    on ``device``.
+
+    ``counts`` (``reset_counts`` zeroes them): ``forwards`` (chain and
+    batched), ``chain_forwards``, ``batched_forwards``, ``tokens`` (valid)
+    and ``padded_tokens``; forward k since the reset tags its spans
+    ``#<k>``."""
 
     BUCKETS = (32, 64, 128, 256, 512, 1024)
     #: word-count buckets for the chain pooling matrix
     WBUCKETS = (16, 64, 256, 1024)
 
-    def __init__(self, model: LlamaBackbone, tokenizer, pad_id: int,
+    def __init__(self, model: nn.Module, tokenizer, pad_id: int,
                  device: str | torch.device | None = None, pipeline_mesh: LocalMesh | None = None):
         self.device = default_device(device)
         self.pipeline_mesh = pipeline_mesh
+        if pipeline_mesh is not None and not isinstance(model, LlamaBackbone):
+            raise ValueError(f"pipeline stages split Llama backbones only (parallel/pipeline.py), "
+                             f"not a {type(model).__name__}")
         if pipeline_mesh is None:
             self.model = model.to(self.device).eval()
         else:
@@ -184,6 +222,15 @@ class TorchTextBackbone:
         self._word_ids: dict[tuple[bool, str], tuple[int, ...]] = {}
         self._inc_checked = 0
         self._inc_enabled = True
+        self.counts: dict[str, int] = {}
+        self.reset_counts()
+
+    def reset_counts(self) -> None:
+        self.counts.update(forwards=0, chain_forwards=0, batched_forwards=0, tokens=0, padded_tokens=0)
+
+    def _tag(self) -> str:
+        """The span tag of the next forward."""
+        return f"#{self.counts['forwards']}"
 
     def _tokenize_full(self, t: str) -> list[int]:
         if hasattr(self.tokenizer, "encode"):  # HF tokenizer
@@ -237,16 +284,24 @@ class TorchTextBackbone:
         return _pad_ids(seqs, _bucket_width(longest, self.BUCKETS), self.pad_id)
 
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        ids_t = torch.from_numpy(np.asarray(ids)).to(self.device, torch.long)
-        mask_t = torch.from_numpy(np.asarray(mask)).to(self.device, torch.int32)
-        if self.pipeline_mesh is None:
-            return self.model(ids_t, mask_t)
-        # the largest power-of-2 divisor of B up to 4: a smaller GPipe
-        # bubble without splitting below one row
-        b = ids_t.shape[0]
-        m = 4 if b % 4 == 0 else (2 if b % 2 == 0 else 1)
-        return pipelined_llama_states(self.model.cfg, self.model, ids_t, mask_t,
-                                      self.pipeline_mesh, n_microbatches=m)
+        tag = self._tag()
+        mask = np.asarray(mask)
+        valid = int(mask.sum())
+        self.counts["forwards"] += 1
+        self.counts["tokens"] += valid
+        self.counts["padded_tokens"] += mask.size - valid
+        with span(f"text.upload{tag}"):
+            ids_t = _upload(np.asarray(ids), self.device, torch.long)
+            mask_t = _upload(mask, self.device, torch.int32)
+        with span(f"text.backbone{tag}"):
+            if self.pipeline_mesh is None:
+                return self.model(ids_t, mask_t)
+            # the largest power-of-2 divisor of B up to 4: a smaller GPipe
+            # bubble without splitting below one row
+            b = ids_t.shape[0]
+            m = 4 if b % 4 == 0 else (2 if b % 2 == 0 else 1)
+            return pipelined_llama_states(self.model.cfg, self.model, ids_t, mask_t,
+                                          self.pipeline_mesh, n_microbatches=m)
 
     @torch.no_grad()
     def hidden_states(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
@@ -256,13 +311,17 @@ class TorchTextBackbone:
     def _pooled(self, ids: np.ndarray, mask: np.ndarray, spans: np.ndarray) -> torch.Tensor:
         # word embedding = mean of the last `span` valid positions, pooled
         # ON DEVICE so only (L+1, B, D) crosses to the host
+        tag = self._tag()
+        self.counts["batched_forwards"] += 1
+        with span(f"text.upload{tag}"):
+            n_valid = _upload(np.asarray(mask).sum(axis=-1), self.device, torch.int64)
+            spans_t = _upload(np.asarray(spans), self.device, torch.int64)
         states = self._forward(ids, mask)
-        n_valid = torch.from_numpy(np.asarray(mask).sum(axis=-1)).to(self.device)
-        spans_t = torch.from_numpy(np.asarray(spans)).to(self.device)
-        pos = torch.arange(ids.shape[-1], device=self.device)[None]
-        sel = (pos >= (n_valid - spans_t)[:, None]) & (pos < n_valid[:, None])
-        w = sel / sel.sum(dim=-1, keepdim=True).clamp_min(1)
-        return torch.einsum("lbtd,bt->lbd", states, w.float())
+        with span(f"text.pool{tag}"):
+            pos = torch.arange(ids.shape[-1], device=self.device)[None]
+            sel = (pos >= (n_valid - spans_t)[:, None]) & (pos < n_valid[:, None])
+            w = sel / sel.sum(dim=-1, keepdim=True).clamp_min(1)
+            return torch.einsum("lbtd,bt->lbd", states, w.float())
 
     def pooled_states(self, ids: np.ndarray, mask: np.ndarray, spans: np.ndarray) -> np.ndarray:
         """(L+1, B, D) word embeddings, pooled on device."""
@@ -271,7 +330,10 @@ class TorchTextBackbone:
     def pooled_states_async(self, ids: np.ndarray, mask: np.ndarray, spans: np.ndarray) -> _HostCopy:
         """Dispatch the pooled forward and its copy to the host without
         waiting for either; ``np.asarray`` of the result waits."""
-        return _HostCopy(self._pooled(ids, mask, spans))
+        tag = self._tag()
+        out = self._pooled(ids, mask, spans)
+        with span(f"text.pool{tag}"):
+            return _HostCopy(out, tag)
 
     def chain_tokenize(self, texts: list[str]) -> list[list[int]]:
         """Token ids per text via the incremental per-word cache."""
@@ -288,18 +350,23 @@ class TorchTextBackbone:
         separately (causal attention + shared absolute positions).  Returns
         (L+1, Wbucket, D) on its way to the host; the caller takes the first
         len(tokens) rows."""
-        width = _bucket_width(len(tokens[-1]), self.BUCKETS)
-        ids, mask = _pad_ids([tokens[-1]], width, self.pad_id)
-        # word-count axis: bucket table, then 256-steps beyond it
-        wb = _bucket_width(len(tokens), self.WBUCKETS, step=256)
-        pool = np.zeros((wb, width), dtype=np.float32)
-        for i, (tk, span) in enumerate(zip(tokens, spans)):
-            length = max(1, len(tk))
-            s = max(1, min(int(span), length))
-            pool[i, length - s : length] = 1.0 / s
+        tag = self._tag()
+        self.counts["chain_forwards"] += 1
+        with span(f"text.pad{tag}"):
+            width = _bucket_width(len(tokens[-1]), self.BUCKETS)
+            ids, mask = _pad_ids([tokens[-1]], width, self.pad_id)
+            # word-count axis: bucket table, then 256-steps beyond it
+            wb = _bucket_width(len(tokens), self.WBUCKETS, step=256)
+            pool = np.zeros((wb, width), dtype=np.float32)
+            for i, (tk, n) in enumerate(zip(tokens, spans)):
+                length = max(1, len(tk))
+                s = max(1, min(int(n), length))
+                pool[i, length - s : length] = 1.0 / s
+        with span(f"text.upload{tag}"):
+            pool_t = _upload(pool, self.device, torch.float32)
         states = self._forward(ids, mask)  # (L+1, 1, T, D)
-        pool_t = torch.from_numpy(pool).to(self.device)
-        return _HostCopy(torch.einsum("ltd,wt->lwd", states[:, 0], pool_t))
+        with span(f"text.pool{tag}"):
+            return _HostCopy(torch.einsum("ltd,wt->lwd", states[:, 0], pool_t), tag)
 
 
 class TinyTextBackbone(TorchTextBackbone):
@@ -347,14 +414,29 @@ def load_text_backbone(
     device: str | torch.device | None = None,
     pipeline_stages: int = 0,
 ) -> TorchTextBackbone:
-    """A bf16 Llama from an HF LlamaModel's state dict and config dict
-    (``config.json`` keys: vocab_size, hidden_size, intermediate_size,
-    num_hidden_layers, num_attention_heads, num_key_value_heads,
-    rope_theta), the llama3 rope scaling and RMSNorm eps of the 3.2 family,
-    and a tokenizer (an HF tokenizer's ``encode``, or any callable text ->
-    ids)."""
+    """A bf16 backbone from an HF model's state dict and config dict, by its
+    ``model_type``, and a tokenizer (an HF tokenizer's ``encode``, or any
+    callable text -> ids).
+
+    ``llama`` (the default): an HF LlamaModel's (``config.json`` keys:
+    vocab_size, hidden_size, intermediate_size, num_hidden_layers,
+    num_attention_heads, num_key_value_heads, rope_theta), with the llama3
+    rope scaling and RMSNorm eps of the 3.2 family.  ``deepseek_v2``: an HF
+    DeepseekV2Model's (``deepseek_v2.config_from_hf``), its tensors read one
+    name at a time and kept on their device (a mapping that makes each
+    tensor on the card builds the model there); pipeline stages are
+    Llama's only."""
     device = default_device(device)
     c = hf_config
+    kind = c.get("model_type", "llama")
+    if kind == "deepseek_v2":
+        if pipeline_stages > 1:
+            raise ValueError("pipeline stages split Llama backbones only (parallel/pipeline.py), "
+                             "not deepseek_v2")
+        model = deepseek_v2.from_hf(state_dict, c)
+        return TorchTextBackbone(model, tokenizer, pad_id, device=device)
+    if kind != "llama":
+        raise ValueError(f"no text backbone for model_type {kind!r} (llama, deepseek_v2)")
     cfg = LlamaConfig(
         vocab_size=c["vocab_size"],
         hidden_size=c["hidden_size"],
@@ -388,13 +470,17 @@ def load_hf_text_backbone(
     """The bf16 backbone of a named HF checkpoint (``AutoModel`` and its
     tokenizer), read from the local HF cache only: nothing is downloaded.
     ``pipeline_stages`` > 1 splits the layer stack over that many devices
-    (``_pp_mesh``)."""
-    from transformers import AutoModel, AutoTokenizer
+    (``_pp_mesh``).  A ``deepseek_v2`` checkpoint loads in its bf16 (the
+    15.7 B parameters of the Lite would take 63 GB of host memory in
+    float32)."""
+    from transformers import AutoConfig, AutoModel, AutoTokenizer
 
     tokenizer = AutoTokenizer.from_pretrained(
         model_name, truncation_side="left", local_files_only=True
     )
-    hf_model = AutoModel.from_pretrained(model_name, local_files_only=True)
+    kind = AutoConfig.from_pretrained(model_name, local_files_only=True).model_type
+    extra = {"dtype": torch.bfloat16} if kind == "deepseek_v2" else {}
+    hf_model = AutoModel.from_pretrained(model_name, local_files_only=True, **extra)
     pad_id = tokenizer.pad_token_id
     if pad_id is None:  # `or` would discard a legitimate pad id of 0
         pad_id = tokenizer.eos_token_id
@@ -465,11 +551,12 @@ def _batched(
     def dispatches():
         for lo in range(0, len(words), batch_size):
             chunk = words[lo : lo + batch_size]
-            ids, mask = backbone.encode_pretokenized(toks[lo : lo + batch_size], max_context_tokens)
-            # last len(word) valid positions, mean-pooled (reference parity)
-            n_valid = mask.sum(axis=-1)
-            spans = np.array([max(1, min(len(w[0]), int(n_valid[j]))) for j, w in enumerate(chunk)],
-                             dtype=np.int32)
+            with span(f"text.pad{backbone._tag()}"):
+                ids, mask = backbone.encode_pretokenized(toks[lo : lo + batch_size], max_context_tokens)
+                # last len(word) valid positions, mean-pooled (reference parity)
+                n_valid = mask.sum(axis=-1)
+                spans = np.array([max(1, min(len(w[0]), int(n_valid[j]))) for j, w in enumerate(chunk)],
+                                 dtype=np.int32)
             yield backbone.pooled_states_async(ids, mask, spans), len(chunk)
 
     yield from _pipelined_columns(dispatches())
