@@ -14,7 +14,13 @@ Under a profiler chunk k's stages are spans (``utils.profiling.span``):
 ``audio.backbone#<k>`` (the conformer's ``conformer.*`` inside),
 ``audio.frames#<k>`` and ``audio.fetch#<k>``.  ``TorchAudioBackbone.counts``
 counts the chunks, their valid 50 Hz frames and the padded frames the
-buckets add.
+buckets add, and the CUDA graphs of the conformer.
+
+On the card a bucketed chunk's conformer is replayed from CUDA graphs
+(``StageGraphs``), one set a bucket shape, captured after the bucket's
+first chunk: every hook-free run of the forward's stages is one graph,
+and a stage with a Python hook runs eagerly, so its hooks fire on every
+chunk.  The exact-length call and the CPU run every stage eagerly.
 
 ``encode_sound_stream`` takes ``(waveform, rate, duration)`` chunks; the
 pydantic ``Wav2VecBert`` feature feeds it from ``Sound`` events (or the wav
@@ -29,11 +35,13 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.modules import module as nn_module
 
 from ..core.events import Event, Sound, Video
 from ..core.timed import Frequency
 from ..io import wav as wavio
 from ..models.backbones.wav2vec_bert import Wav2VecBertBackbone, Wav2VecBertConfig, params_from_hf
+from ..ops import flash_attention as flash_ops
 from ..ops.mel import log_mel_features, log_mel_features_masked
 from ..ops.resample import resample_poly
 from ..runtime import default_device
@@ -51,6 +59,8 @@ __all__ = [
     "load_audio_backbone",
     "load_hf_audio_backbone",
     "encode_sound_stream",
+    "stage_runs",
+    "StageGraphs",
 ]
 
 TARGET_SR = 16000
@@ -79,6 +89,173 @@ def _frame_index(n_out: int, ratio: np.float32, n_in: int) -> np.ndarray:
     return np.clip(idx, 0, max(n_in - 1, 0))
 
 
+def _has_hooks(*roots: torch.nn.Module) -> bool:
+    """Whether a forward or forward-pre hook sits on ``roots`` or a module
+    under them (a walk of ``_modules``: ``modules()`` costs ~5x as much,
+    and this runs every chunk)."""
+    stack = list(roots)
+    while stack:
+        module = stack.pop()
+        if module is not None:
+            if module._forward_hooks or module._forward_pre_hooks:
+                return True
+            stack.extend(module._modules.values())
+    return False
+
+
+def stage_runs(model: Wav2VecBertBackbone) -> list[tuple[int, int, bool]]:
+    """The forward's stages (``Wav2VecBertBackbone.stage_modules``: 0 the
+    embed, k the layer k - 1) as maximal runs ``(start, stop, hook_free)``
+    of consecutive stages that all lack, or all have, a forward or
+    forward-pre hook on one of their modules or submodules.  A hook on the
+    backbone itself or a global module hook marks every stage.  A pure
+    function of the hooks registered."""
+    everywhere = (bool(model._forward_hooks or model._forward_pre_hooks)
+                  or bool(nn_module._global_forward_hooks or nn_module._global_forward_pre_hooks))
+    runs: list[tuple[int, int, bool]] = []
+    for k, roots in enumerate(model.stage_modules()):
+        free = not everywhere and not _has_hooks(*roots)
+        if runs and runs[-1][2] == free:
+            runs[-1] = (runs[-1][0], k + 1, free)
+        else:
+            runs.append((k, k + 1, free))
+    return runs
+
+
+class StageGraphs:
+    """CUDA graphs of a backbone's bucketed forwards on the card: for each
+    (bucket frames, ``stage_runs``) key, one graph a hook-free run, captured
+    on a side stream right after the key's first chunk, which runs every
+    stage eagerly (its hook-free runs on that side stream, as their warm-up)
+    and returns its own states.  Later chunks of the key replay the graphs
+    and run the hooked stages eagerly between them.
+
+    The static buffers (the mel features, the mask, the carry between runs
+    and the flat fp32 (L+1) x T x D stack) are sized for the largest bucket
+    seen; each bucket uses views of their first elements, and every graph
+    of every bucket draws its intermediates from one shared memory pool.
+    Graphs bake in addresses, so a larger bucket reallocates the buffers,
+    drops every graph and lets each key capture again.  Invariant: nothing
+    that lives across replays is allocated inside a capture (every input,
+    output and carry is a static buffer, allocated outside), so the graphs
+    may replay in any order although they share a pool.
+
+    A capture runs in the calling thread's own mode (``thread_local``): the
+    other threads of the process (the other features of ``prepare_features``)
+    may allocate device and page-locked memory, copy to and from the host,
+    and record, query and wait on events and streams meanwhile.  A
+    device-wide ``torch.cuda.synchronize()`` in another thread still
+    invalidates the capture (in every mode), and a draw from the card's
+    default generator there raises (the capture holds that generator);
+    the port's features make neither call.
+    Each graph keeps the kernel launches its capture recorded
+    (``ops.flash_attention.recorded_counts``) and adds them to
+    ``launch_counts`` at each replay, so the counts are launches run."""
+
+    def __init__(self, model: Wav2VecBertBackbone, device: torch.device):
+        self.model = model
+        self.device = device
+        #: the side stream of every warm-up and capture (none on the CPU,
+        #: where only the static buffers and the runs work)
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        #: per key, each hook-free run's graph and the launches it records
+        self.graphs: dict[tuple, dict[int, tuple[torch.cuda.CUDAGraph, dict[str, int]]]] = {}
+        self.frames = 0
+        self.pool = None
+
+    def _views(self, t: int) -> dict[str, torch.Tensor]:
+        """The static buffers' views for ``t`` frames, reallocated (every
+        graph dropped first) when ``t`` passes their size."""
+        cfg = self.model.cfg
+        if t > self.frames:
+            self.graphs.clear()
+            self.pool = None
+            self.buffers = {
+                "feats": torch.empty(t * cfg.input_dim, device=self.device),
+                "mask": torch.empty(t, dtype=torch.bool, device=self.device),
+                "x": torch.zeros(t * cfg.hidden_size, dtype=cfg.dtype, device=self.device),
+                "lengths": torch.zeros(1, dtype=torch.int32, device=self.device),
+                "out": torch.empty(self.model.num_stages * t * cfg.hidden_size, device=self.device),
+            }
+            self.frames = t
+        b = self.buffers
+        return {"feats": b["feats"][:t * cfg.input_dim].view(1, t, cfg.input_dim),
+                "mask": b["mask"][:t].view(1, t),
+                "x": b["x"][:t * cfg.hidden_size].view(1, t, cfg.hidden_size),
+                "lengths": b["lengths"],
+                "out": b["out"][:self.model.num_stages * t * cfg.hidden_size].view(-1, 1, t, cfg.hidden_size)}
+
+    def _run(self, start: int, stop: int, v: dict[str, torch.Tensor], own: bool = False) -> None:
+        """Stages ``start`` to ``stop - 1`` from the static carry into the
+        static stack, leaving the next stage's carry in the static buffers;
+        with ``own`` on copies of the carry, so that hooks see tensors of
+        their own chunk."""
+        carry = (v["feats"], v["mask"]) if start == 0 else (v["x"], v["lengths"], v["mask"])
+        if own:
+            carry = tuple(c.clone() for c in carry)
+        x, lengths, _ = self.model.run_stages(start, stop, carry, v["out"])
+        if stop < self.model.num_stages:
+            v["x"].copy_(x)
+            if start == 0:
+                v["lengths"].copy_(lengths)
+
+    def __call__(self, feats: torch.Tensor, mask: torch.Tensor, runs: list[tuple[int, int, bool]],
+                 counts: dict[str, int]) -> torch.Tensor:
+        """The (L+1, 1, T, D) stack of ``feats`` (1, T, input_dim) under
+        ``mask`` (1, T): a view of the static stack, valid until the next
+        call."""
+        v = self._views(feats.shape[1])
+        v["feats"].copy_(feats)
+        v["mask"].copy_(mask)
+        key = (feats.shape[1], tuple(runs))
+        graphs = self.graphs.get(key)
+        main = torch.cuda.current_stream(self.device)
+        for start, stop, free in runs:
+            if free and graphs is not None:
+                graph, recorded = graphs[start]
+                graph.replay()
+                for name, n in recorded.items():
+                    flash_ops.launch_counts[name] += n
+                counts["graph_replays"] += 1
+                continue
+            counts["eager_stages"] += stop - start
+            if not free:
+                self._run(start, stop, v, own=True)
+                continue
+            self.stream.wait_stream(main)
+            with torch.cuda.stream(self.stream):
+                self._run(start, stop, v)
+            main.wait_stream(self.stream)
+        if graphs is None:
+            self.graphs[key] = self._capture(runs, v)
+            counts["graph_captures"] += len(self.graphs[key])
+        return v["out"]
+
+    def _capture(self, runs: list[tuple[int, int, bool]],
+                 v: dict[str, torch.Tensor]) -> dict[int, tuple[torch.cuda.CUDAGraph, dict[str, int]]]:
+        """One graph a hook-free run, on the side stream its warm-up ran on,
+        with the launches it recorded.  A capture records and runs nothing:
+        the stack keeps the states the eager call left there.
+        ``capture_begin`` / ``capture_end`` directly: ``torch.cuda.graph``
+        would also synchronise, collect garbage and empty the allocator's
+        cache at every capture."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graphs = {}
+        with torch.cuda.stream(self.stream):
+            for start, stop, free in runs:
+                if free:
+                    graph, before = torch.cuda.CUDAGraph(), dict(flash_ops.recorded_counts)
+                    graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+                    try:
+                        self._run(start, stop, v)
+                    finally:
+                        graph.capture_end()
+                    recorded = {name: n - before[name] for name, n in flash_ops.recorded_counts.items()}
+                    graphs[start] = graph, {name: n for name, n in recorded.items() if n}
+        return graphs
+
+
 class TorchAudioBackbone:
     """A Wav2VecBertBackbone on one device (the CUDA card unless ``device``
     says otherwise); waveforms are 16 kHz mono float32 arrays or tensors."""
@@ -89,12 +266,16 @@ class TorchAudioBackbone:
         #: distinct (bucket samples, n_out_max) shapes run so far
         self.bucket_shapes: set[tuple[int, int]] = set()
         #: chunks encoded on the 2 Hz grid, their valid 50 Hz frames and the
-        #: frames their buckets' padding added (``reset_counts`` zeroes them)
+        #: frames their buckets' padding added; the CUDA graphs captured and
+        #: replayed, and the stages run eagerly, in the bucketed path on the
+        #: card (``reset_counts`` zeroes them)
         self.counts: dict[str, int] = {}
         self.reset_counts()
+        self.graphs = StageGraphs(self.model, self.device) if self.device.type == "cuda" else None
 
     def reset_counts(self) -> None:
-        self.counts.update(chunks=0, frames=0, padded_frames=0)
+        self.counts.update(chunks=0, frames=0, padded_frames=0, graph_captures=0, graph_replays=0,
+                           eager_stages=0)
 
     def _wav(self, wav_16k) -> torch.Tensor:
         return torch.as_tensor(wav_16k, dtype=torch.float32).to(self.device)
@@ -118,7 +299,9 @@ class TorchAudioBackbone:
         conformer's attention masking out the padding (so the values match
         the exact-length call within float tolerance).  Its stages are the
         spans ``audio.mel<tag>``, ``audio.backbone<tag>`` and
-        ``audio.frames<tag>``."""
+        ``audio.frames<tag>``.  A bucketed call on the card replays the
+        bucket's CUDA graphs (``StageGraphs``) where the backbone's hooks
+        leave a stage free of them."""
         n = wav.shape[-1]
         mask = None
         with span(f"audio.mel{tag}"):
@@ -133,7 +316,13 @@ class TorchAudioBackbone:
                 feats, t_valid = log_mel_features_masked(F.pad(wav, (0, bucket_samples - n)), n)
                 mask = (torch.arange(feats.shape[0], device=self.device) < t_valid)[None]
         with span(f"audio.backbone{tag}"):
-            states = self.model(feats[None], attention_mask=mask)[:, 0]  # (L+1, T50 or T50pad, D)
+            runs = None if mask is None or self.graphs is None else stage_runs(self.model)
+            if runs is not None and any(free for *_, free in runs):
+                states = self.graphs(feats[None], mask, runs, self.counts)[:, 0]
+            else:
+                states = self.model(feats[None], attention_mask=mask)[:, 0]  # (L+1, T50 or T50pad, D)
+                if runs is not None:
+                    self.counts["eager_stages"] += self.model.num_stages
         with span(f"audio.frames{tag}"):
             if bucket_samples is None:
                 idx = _frame_index(n_out, np.float32(t_valid / n_out), t_valid)

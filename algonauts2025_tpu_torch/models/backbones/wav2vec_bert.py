@@ -210,24 +210,53 @@ class Wav2VecBertBackbone(nn.Module):
         the mask's device.  A row whose mask is not right-padded gives NaN
         states from entry 1 on (the counts could not mask its keys), with
         no host sync."""
+        b, t, _ = input_features.shape
+        out = torch.empty((self.num_stages, b, t, self.cfg.hidden_size), device=input_features.device)
+        self.run_stages(0, self.num_stages, (input_features, attention_mask), out)
+        return out
+
+    @property
+    def num_stages(self) -> int:
+        """The forward's stages: the embed, then one a layer."""
+        return 1 + self.cfg.num_layers
+
+    def stage_modules(self) -> list[tuple[nn.Module, ...]]:
+        """The modules each stage of the forward calls, stage by stage."""
+        return [(self.fp_layer_norm, self.fp_projection), *((layer,) for layer in self.layers)]
+
+    def run_stages(self, start: int, stop: int, carry: tuple, out: torch.Tensor) -> tuple:
+        """Stages ``start`` to ``stop - 1`` of the forward into the (L+1, B,
+        T, D) fp32 stack ``out``.  Stage 0, the embed, takes the carry
+        ``(input_features, attention_mask)`` and writes ``out[0]``; stage k
+        is layer k - 1, takes the carry ``(x, lengths, pad_mask)`` and writes
+        ``out[k]``.  Returns the carry of stage ``stop``."""
+        for k in range(start, stop):
+            if k == 0:
+                carry = self._embed(*carry, out[0])
+                continue
+            x, lengths, pad_mask = carry
+            x = self.layers[k - 1](x, lengths, pad_mask)
+            out[k] = x
+            carry = (x, lengths, pad_mask)
+        return carry
+
+    def _embed(self, input_features: torch.Tensor, attention_mask: torch.Tensor | None,
+               out0: torch.Tensor) -> tuple:
+        """The projected input into ``out0``; the first layer's carry."""
         cfg = self.cfg
         with span("conformer.embed"):
             x = self.fp_projection(_layer_norm(input_features, self.fp_layer_norm, cfg.dtype))
-            b, t, _ = x.shape
+            t = x.shape[1]
             pad_mask = lengths = None
             if attention_mask is not None:
                 pad_mask = attention_mask.bool()
                 x = torch.where(pad_mask[..., None], x, 0.0)
                 lengths = pad_mask.sum(dim=-1, dtype=torch.int32)
                 right_padded = (pad_mask == (torch.arange(t, device=x.device) < lengths[:, None])).all(dim=-1)
-        out = torch.empty((cfg.num_layers + 1, b, t, cfg.hidden_size), device=x.device)
-        out[0] = x
+        out0.copy_(x)
         if attention_mask is not None:
             x = torch.where(right_padded[:, None, None], x, torch.nan)
-        for i, layer in enumerate(self.layers):
-            x = layer(x, lengths, pad_mask)
-            out[i + 1] = x
-        return out
+        return x, lengths, pad_mask
 
 
 def params_from_hf(state_dict: tp.Mapping[str, tp.Any], cfg: Wav2VecBertConfig) -> dict[str, torch.Tensor]:

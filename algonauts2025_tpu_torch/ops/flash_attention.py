@@ -58,11 +58,15 @@ __all__ = ["flash_attention", "fast_flash_attention", "flash_attention_packed", 
            "packed_attention_plain", "relkey_attention_plain", "relative_positions", "check_tma_layout",
            "tc_block", "tc_launch_regs", "tc_instantiation", "TC_INSTANTIATIONS", "check_relkey_inputs",
            "relkey_block", "relkey_tile_kind", "relkey_instantiation", "RELKEY_INSTANTIATIONS", "RELKEY_HEAD_DIM",
-           "launch_counts"]
+           "launch_counts", "recorded_counts"]
 
 #: kernel launches since the last reset, counted where the kernel launches
 launch_counts: dict[str, int] = {"flash_attention": 0, "flash_masked": 0, "flash_fast": 0,
                                  "flash_packed": 0, "flash_relkey": 0}
+#: launches recorded into a CUDA graph while the current stream captures it
+#: (a capture launches nothing): whoever replays the graph adds what its
+#: capture recorded to ``launch_counts`` (``features.audio.StageGraphs``)
+recorded_counts: dict[str, int] = dict.fromkeys(launch_counts, 0)
 
 _FORWARD = ("flash_attention", "flash_forward", (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -513,7 +517,8 @@ def check_relkey_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, table
 
 
 def _relkey_cuda(q, k, v, table, lengths, left, right) -> torch.Tensor:
-    """``flash_relkey_forward`` on the current stream, counted."""
+    """``flash_relkey_forward`` on the current stream, counted (in
+    ``recorded_counts`` while the stream captures a graph)."""
     _cuda.check_cuda("relative-key attention", q=q, k=k, v=v, table=table,
                      **({} if lengths is None else {"lengths": lengths}))
     check_relkey_inputs(q, k, v, table, lengths, left, right)
@@ -529,7 +534,7 @@ def _relkey_cuda(q, k, v, table, lengths, left, right) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"flash_relkey kernel launch failed: CUDA error {err} (shape {tuple(q.shape)})")
-    launch_counts["flash_relkey"] += 1
+    (recorded_counts if torch.cuda.is_current_stream_capturing() else launch_counts)["flash_relkey"] += 1
     return out
 
 

@@ -1577,12 +1577,15 @@ def audio_path(peaks: dict[str, float]) -> dict:
     reset_counts()
     feats, chunk_s = [], []
     t0 = time.perf_counter()
-    for latents in encode_sound_stream(backbone, chunks):  # each ends in a copy to the host
+    # each chunk opens a bucket (it runs eagerly, then the bucket's graph is
+    # captured); the 60 s chunk again at the end replays its bucket's graph
+    for latents in encode_sound_stream(backbone, [*chunks, chunks[-1]]):  # each ends in a copy to the host
         chunk_s.append(time.perf_counter() - t0)
         feats.append(latents)
         t0 = time.perf_counter()
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    replayed, replay_ms = feats.pop(), chunk_s.pop() * 1e3
     n_outs = [max(1, int(np.round(d * 2))) for d in AUDIO_CHUNKS_S]
     trunk_input = np.concatenate([aggregate_layers(f, [0.5, 0.75, 1.0]) for f in feats], axis=-1)
     ms_chunk = statistics.mean(chunk_s[1:]) * 1e3
@@ -1591,20 +1594,29 @@ def audio_path(peaks: dict[str, float]) -> dict:
     flops = w2v_flops(cfg, frames // 2)
     log(f"audio features {[f.shape for f in feats]}, trunk input {trunk_input.shape}; buckets "
         f"{sorted(backbone.bucket_shapes)}; chunk seconds {[round(x, 4) for x in chunk_s]}")
-    log(f"audio path: {ms_chunk:.2f} ms per chunk (first excluded), {per_hour:.3f} s per hour of audio, "
-        f"peak {peak_gb:.2f} GB; a 60 s chunk is {flops / 1e12:.3f} TFLOP, "
-        f"{1e3 * flops / peaks['bfloat16']:.3f} ms at the bf16 peak; launches {launches}")
+    log(f"audio path: {ms_chunk:.2f} ms per chunk that opens a bucket (first excluded), {per_hour:.3f} s per "
+        f"hour of audio, the 60 s chunk replayed {replay_ms:.2f} ms, peak {peak_gb:.2f} GB; a 60 s chunk is "
+        f"{flops / 1e12:.3f} TFLOP, {1e3 * flops / peaks['bfloat16']:.3f} ms at the bf16 peak; launches "
+        f"{launches}; graphs {backbone.counts}")
     want = [(cfg.num_layers + 1, cfg.hidden_size, n) for n in n_outs]
     if [f.shape for f in feats] != want or not all(np.isfinite(f).all() for f in feats):
         raise SystemExit(f"audio features: shapes {[f.shape for f in feats]} (want {want}) or non-finite values")
     if trunk_input.shape != (2, cfg.hidden_size, sum(n_outs)) or not np.isfinite(trunk_input).all():
         raise SystemExit(f"aggregate_layers gave {trunk_input.shape} or non-finite values")
-    expected = {**{key: 0 for key in launches}, "flash_relkey": cfg.num_layers * len(chunks)}
+    # row 8 runs once a layer in every forward, eager or replayed (a capture
+    # launches nothing, and each replay counts what its capture recorded)
+    expected = {**{key: 0 for key in launches}, "flash_relkey": cfg.num_layers * (len(chunks) + 1)}
+    graphs = {key: backbone.counts[key] for key in ("graph_captures", "graph_replays")}
+    if graphs != {"graph_captures": len(chunks), "graph_replays": 1}:
+        raise SystemExit(f"the audio path gave {graphs} over {len(chunks)} buckets, not one capture a bucket "
+                         f"and one replay")
+    if not np.array_equal(replayed, feats[-1]):
+        raise SystemExit("the replayed 60 s chunk differs from its eager run")
     if sorted(b for b, _ in backbone.bucket_shapes) != list(AUDIO_BUCKETS) or launches != expected:
         raise SystemExit(f"the audio path ran other buckets than reckoned, or launched {launches}, not {expected}")
 
-    profile_run(f"audio {chunks[-1][2]} s chunk", lambda: list(encode_sound_stream(backbone, [chunks[-1]])),
-                chunk_s[-1] * 1e3)
+    profile_run(f"audio {chunks[-1][2]} s chunk, replayed", lambda: list(encode_sound_stream(backbone, [chunks[-1]])),
+                replay_ms)
 
     # the 38.3 s chunk again at its exact length: the padding is masked out
     wav, sr, _ = chunks[1]
@@ -1618,8 +1630,8 @@ def audio_path(peaks: dict[str, float]) -> dict:
         f"by layer {' '.join(f'{r:.1e}' for r in rel)}")
     if not (rel.max() <= rel_tol and cos.min() >= cos_tol):
         raise SystemExit("the bucketed audio features disagree with the exact-length call")
-    return {"ms_chunk": ms_chunk, "per_hour": per_hour, "peak_gb": peak_gb, "n_params": n_params,
-            "backbone": backbone, "launches": launches}
+    return {"ms_chunk": ms_chunk, "replay_ms": replay_ms, "per_hour": per_hour, "peak_gb": peak_gb,
+            "n_params": n_params, "backbone": backbone, "launches": launches}
 
 
 FLAGSHIP_DIMS = {"text": (2, 3072), "audio": (2, 1024), "video": (2, 1408)}
@@ -2076,7 +2088,10 @@ def trimodal_path(root: Path, llama: TorchTextBackbone, audio: TorchAudioBackbon
     """``grids/defaults.py`` whole on the card: the text (Llama-3.2-3B),
     audio (w2v-BERT 2.0) and video (ViT-G, static int8) features at full
     width, seeded, and the flagship trunk with InfoNCE on video, over a
-    synthetic study with video."""
+    synthetic study with video.  The audio feature gets a fresh backbone
+    over ``audio``'s model, with no graph captured yet: it captures its
+    buckets' graphs while the other features work on the card in their
+    threads (``prepare_features``)."""
     study = make_synthetic_study(root / "data", **TRIMODAL_STUDY)
     cfg = experiment_config(root, study, "trimodal_run", modalities=("text", "audio", "video"),
                             n_epochs=1)
@@ -2088,6 +2103,7 @@ def trimodal_path(root: Path, llama: TorchTextBackbone, audio: TorchAudioBackbon
     video = TorchVideoBackbone(model, n_frames=vit_cfg.frames_per_clip, crop_size=vit_cfg.crop_size)
     exp = Experiment(**cfg)
     exp.data.text_feature.set_backbone(llama)
+    audio = TorchAudioBackbone(audio.model)
     exp.data.audio_feature.set_backbone(audio)
     exp.data.video_feature.set_backbone(video)
     clock = StageClock()
@@ -2107,11 +2123,17 @@ def trimodal_path(root: Path, llama: TorchTextBackbone, audio: TorchAudioBackbon
     log(f"Experiment (trimodal default: Llama-3.2-3B, w2v-BERT 2.0, ViT-G int8, flagship trunk): "
         f"{total_s:.2f} s; by stage { {k: round(v, 3) for k, v in clock.seconds.items()} }; "
         f"peak {peak_gb:.2f} GB; launches {launches} (video rows expected {expected}); "
-        f"metrics {json.dumps(out)}")
+        f"audio {audio.counts}; metrics {json.dumps(out)}")
     check_artifacts(Path(cfg["infra"]["folder"]), out, "Experiment (trimodal)", checkpoint=False)
     if {k: launches[k] for k in expected} != expected or not (
             launches["attention"] and launches["flash_masked"]):  # rows 1 and 2
         raise SystemExit("the trimodal Experiment did not launch the kernels as expected")
+    # no hook on the backbone: each chunk is one graph, captured after the
+    # chunk (its bucket's first, or its first since a larger bucket came)
+    # beside the other features' threads, or replayed
+    graphs = audio.counts["graph_captures"], audio.counts["graph_replays"]
+    if not (min(graphs) >= 1 and sum(graphs) == audio.counts["chunks"]):
+        raise SystemExit(f"the trimodal Experiment's audio gave {audio.counts}: not a capture or a replay a chunk")
     return {"seconds": clock.seconds, "total_s": total_s, "peak_gb": peak_gb, "launches": launches,
             "cfg": cfg}
 
@@ -2894,7 +2916,8 @@ def main() -> None:
     bench = bench_path()
     log(f"attention bench: {bench['ms']} ms per call on {name_and_limit}")
     audio = audio_path(peaks)
-    log(f"audio path: {audio['ms_chunk']:.2f} ms per 30-60 s chunk (first excluded), "
+    log(f"audio path: {audio['ms_chunk']:.2f} ms per 30-60 s chunk that opens a bucket (first excluded), "
+        f"{audio['replay_ms']:.2f} ms the 60 s chunk replayed, "
         f"{audio['per_hour']:.3f} s per hour of audio, peak {audio['peak_gb']:.2f} GB, "
         f"{audio['n_params']} params on {name_and_limit}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

@@ -149,3 +149,175 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ta.TinyAudioBackbone()
     assert ta.TinyAudioBackbone(device="cpu").device == torch.device("cpu")
+
+
+# the stage runs (features/audio.py ``stage_runs``) of a 3-layer backbone:
+# stage 0 the embed, stage k the layer k - 1; each case registers its hooks
+def _noop(*args):
+    return None
+
+
+HOOK_CASES = {
+    "none": (lambda m: [], [(0, 4, True)]),
+    "layer": (lambda m: [m.layers[1].register_forward_hook(_noop)], [(0, 2, True), (2, 3, False), (3, 4, True)]),
+    "submodule_pre_hook": (lambda m: [m.layers[0].self_attn.register_forward_pre_hook(_noop)],
+                           [(0, 1, True), (1, 2, False), (2, 4, True)]),
+    "nested_submodule": (lambda m: [m.layers[2].conv_module.depthwise_conv.register_forward_hook(_noop)],
+                         [(0, 3, True), (3, 4, False)]),
+    "embed": (lambda m: [m.fp_projection.register_forward_pre_hook(_noop)], [(0, 1, False), (1, 4, True)]),
+    "adjacent_layers": (lambda m: [m.layers[1].register_forward_hook(_noop),
+                                   m.layers[2].ffn2.register_forward_hook(_noop)],
+                        [(0, 2, True), (2, 4, False)]),
+    "backbone": (lambda m: [m.register_forward_hook(_noop)], [(0, 4, False)]),
+    "global": (lambda m: [torch.nn.modules.module.register_module_forward_hook(_noop)], [(0, 4, False)]),
+    "global_pre_hook": (lambda m: [torch.nn.modules.module.register_module_forward_pre_hook(_noop)],
+                        [(0, 4, False)]),
+}
+
+
+@pytest.mark.parametrize("case", list(HOOK_CASES))
+def test_stage_runs_split_by_hooks(case):
+    """Maximal runs of hook-free and of hooked stages, a pure function of
+    the hooks registered: removing them gives one hook-free run again."""
+    model = ta.TinyAudioBackbone(hidden_size=32, num_layers=3, device="cpu").model
+    register, want = HOOK_CASES[case]
+    handles = register(model)
+    try:
+        assert ta.stage_runs(model) == want
+        assert ta.stage_runs(model) == want
+    finally:
+        for handle in handles:
+            handle.remove()
+    assert ta.stage_runs(model) == [(0, 4, True)]
+
+
+def _parent_forward(model, feats, mask):
+    """``Wav2VecBertBackbone.forward`` as one loop (the arithmetic before the
+    forward was split into stages)."""
+    from algonauts2025_tpu_torch.models.backbones.wav2vec_bert import _layer_norm
+
+    cfg = model.cfg
+    x = model.fp_projection(_layer_norm(feats, model.fp_layer_norm, cfg.dtype))
+    b, t, _ = x.shape
+    pad_mask = lengths = None
+    if mask is not None:
+        pad_mask = mask.bool()
+        x = torch.where(pad_mask[..., None], x, 0.0)
+        lengths = pad_mask.sum(dim=-1, dtype=torch.int32)
+        right_padded = (pad_mask == (torch.arange(t) < lengths[:, None])).all(dim=-1)
+    out = torch.empty((cfg.num_layers + 1, b, t, cfg.hidden_size))
+    out[0] = x
+    if mask is not None:
+        x = torch.where(right_padded[:, None, None], x, torch.nan)
+    for i, layer in enumerate(model.layers):
+        x = layer(x, lengths, pad_mask)
+        out[i + 1] = x
+    return out
+
+
+def _feats_and_mask(t, valid, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((1, t, 160), generator=gen), (torch.arange(t) < valid)[None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("runs", [[(0, 4)], [(0, 1), (1, 2), (2, 4)], [(0, 2), (2, 3), (3, 4)]],
+                         ids=["one_run", "embed_layer0_rest", "pairs"])
+def test_stage_runs_through_static_buffers_equal_the_forward(runs, dtype):
+    """Any split of the stages, each run from the static carry into the
+    static stack (what a graph replays, here eagerly on the CPU), gives the
+    forward's stack bit for bit; and the forward gives the parent's."""
+    from algonauts2025_tpu_torch.models.backbones.wav2vec_bert import Wav2VecBertBackbone, Wav2VecBertConfig
+
+    cfg = Wav2VecBertConfig(hidden_size=32, num_layers=3, num_heads=4, intermediate_size=64, conv_kernel_size=7,
+                            dtype=dtype)
+    model = Wav2VecBertBackbone(cfg, device="cpu").init_random(torch.Generator().manual_seed(3))
+    graphs = ta.StageGraphs(model, torch.device("cpu"))
+    with torch.no_grad():
+        for t, valid in ((60, 47), (40, 40), (60, 12)):
+            feats, mask = _feats_and_mask(t, valid, seed=t + valid)
+            want = model(feats, attention_mask=mask)
+            assert torch.equal(want, _parent_forward(model, feats, mask))
+            v = graphs._views(t)
+            v["feats"].copy_(feats)
+            v["mask"].copy_(mask)
+            for i, (start, stop) in enumerate(runs):
+                graphs._run(start, stop, v, own=bool(i % 2))
+            assert v["out"].shape == want.shape and torch.equal(v["out"], want)
+
+
+def test_hooked_run_sees_a_carry_of_its_own_chunk():
+    """A hooked stage runs eagerly on a copy of the static carry: a hook
+    that keeps its input holds the chunk's values after the next chunk
+    overwrites the static buffers."""
+    model = ta.TinyAudioBackbone(hidden_size=32, num_layers=2, device="cpu").model
+    graphs = ta.StageGraphs(model, torch.device("cpu"))
+    kept = []
+    handle = model.layers[1].register_forward_pre_hook(lambda module, args: kept.append(args[0]))
+    try:
+        assert ta.stage_runs(model) == [(0, 2, True), (2, 3, False)]
+        with torch.no_grad():
+            for seed in (1, 2):
+                feats, mask = _feats_and_mask(30, 25, seed=seed)
+                v = graphs._views(30)
+                v["feats"].copy_(feats)
+                v["mask"].copy_(mask)
+                graphs._run(0, 2, v)
+                first_input = v["x"].clone()
+                graphs._run(2, 3, v, own=True)
+                assert torch.equal(kept[-1], first_input)
+    finally:
+        handle.remove()
+    assert not torch.equal(kept[0], kept[1]) and kept[0].data_ptr() != v["x"].data_ptr()
+
+
+def test_static_buffers_grow_with_the_largest_bucket():
+    """Views of the first elements for smaller buckets; a larger bucket
+    reallocates and drops every graph (they bake in addresses)."""
+    model = ta.TinyAudioBackbone(hidden_size=32, num_layers=2, device="cpu").model
+    graphs = ta.StageGraphs(model, torch.device("cpu"))
+    big = graphs._views(50)
+    graphs.graphs[(50, ((0, 3, True),))] = {0: "captured"}
+    small = graphs._views(20)
+    assert graphs.frames == 50 and graphs.graphs
+    assert small["out"].shape == (3, 1, 20, 32) and small["out"].is_contiguous()
+    assert small["out"].data_ptr() == big["out"].data_ptr() and small["x"].data_ptr() == big["x"].data_ptr()
+    assert small["feats"].shape == (1, 20, 160) and small["mask"].shape == (1, 20)
+    bigger = graphs._views(70)
+    assert graphs.frames == 70 and not graphs.graphs and graphs.pool is None
+    assert bigger["out"].shape == (3, 1, 70, 32)
+
+
+@pytest.mark.parametrize("bucket_seconds", [5.0, 0.0], ids=["bucketed", "exact"])
+def test_cpu_path_runs_no_graph(pair, bucket_seconds):
+    """On the CPU every stage runs eagerly, as before: no graph is captured
+    or replayed, no stage is counted as eager in the graphed path, and the
+    states equal the stack of the parent's forward at the chunk's frames."""
+    port = pair[1]
+    port.reset_counts()
+    wav = _wav(3.7, seed=5)[:, 0]
+    bucket = 5 * ta.TARGET_SR if bucket_seconds else None
+    with torch.no_grad():
+        got = port.states_2hz(torch.from_numpy(wav), 7, bucket)
+        if bucket is None:
+            feats = ta.log_mel_features(torch.from_numpy(wav))
+            t_valid, mask = feats.shape[0], None
+            idx = ta._frame_index(7, np.float32(t_valid / 7), t_valid)
+        else:
+            feats, t_valid = ta.log_mel_features_masked(torch.nn.functional.pad(torch.from_numpy(wav),
+                                                                                (0, bucket - len(wav))), len(wav))
+            mask = (torch.arange(feats.shape[0]) < t_valid)[None]
+            idx = ta._frame_index(10, np.float32(t_valid) / np.float32(7), t_valid)[:7]
+        want = _parent_forward(port.model, feats[None], mask)
+    assert torch.equal(got, want[:, 0][:, torch.from_numpy(idx)].transpose(1, 2))
+    assert port.counts["graph_captures"] == port.counts["graph_replays"] == port.counts["eager_stages"] == 0
+    assert port.counts["chunks"] == 1
+    assert port.graphs is None
+
+
+def test_reset_counts_zeroes_the_graph_counters(pair):
+    port = pair[1]
+    port.counts.update(graph_captures=3, graph_replays=9, eager_stages=25, chunks=2)
+    port.reset_counts()
+    assert port.counts == {"chunks": 0, "frames": 0, "padded_frames": 0, "graph_captures": 0, "graph_replays": 0,
+                           "eager_stages": 0}
